@@ -1,0 +1,50 @@
+"""Public wrappers for the attention kernels, with the signatures of
+``src/repro/kernels/ops.py``.
+
+Where the reference switches the Pallas kernels to interpret mode off
+the TPU, the port dispatches on the tensors' device inside each kernel
+wrapper: the hand-written CUDA kernel for CUDA tensors, the plain
+PyTorch version for CPU tensors.  The model calls these, never a
+kernel directly.  Only the paged GQA forms of this slice are ported; the
+cross-attention and MLA wrappers come with their slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+from repro_torch.kernels.paged_prefill_attention import (
+    paged_prefill_attention)
+
+
+def _i32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.int32, device=device).contiguous()
+
+
+def prefill_attention(q, k_cache, v_cache, kv_len, q_offset, *,
+                      block_table=None, window: int = 0, causal: bool = True,
+                      block_q: int = 0, block_kv: int = 0):
+    """Chunked-prefill attention, paged form: k_cache/v_cache are the
+    shared page pools (n_pages, page, kvh, hd), ``block_table`` is
+    (b, n_slots) physical page ids and ``q_offset``/``kv_len`` are
+    per-segment (b,) scalars — one fused call covers a whole
+    multi-request chunk.  ``block_q``/``block_kv`` were the Pallas
+    kernels' block sizes; the CUDA kernel picks its own tiles, so they
+    are accepted and not used."""
+    if block_table is None:
+        raise NotImplementedError(
+            "dense chunked-prefill attention (chunked_prefill_attention) "
+            "is ported with the dense and recurrent backends slice")
+    dev = q.device
+    return paged_prefill_attention(
+        q, k_cache, v_cache, _i32(block_table, dev), _i32(kv_len, dev),
+        _i32(q_offset, dev), window=window, causal=causal)
+
+
+def decode_attention(q, k_pool, v_pool, block_table, lens, *,
+                     window: int = 0):
+    dev = q.device
+    return paged_decode_attention(
+        q.contiguous(), k_pool, v_pool, _i32(block_table, dev),
+        _i32(lens, dev), window=window)
+
