@@ -7,20 +7,25 @@ Needs one NVIDIA Hopper card with CUDA, ``nvcc`` and the repository's
 ``src/`` beside this file; without a card it exits non-zero at once.
 Phases, in order (any failure exits non-zero):
 
-1. Build both CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-   print the card's name and power limit.
+1. Build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+   and print the card's name and power limit.
 2. Each kernel against its plain PyTorch version on the same CUDA
-   inputs, at the shapes of the served run (every prefill chunk, the
-   decode slot batch), f32 and bf16, with ragged lengths, pad segments
-   and empty slots on the scratch page, and a windowed case.
-3. Serve: full-width qwen2-0.5b in bf16, random weights from a seeded
-   generator, one PrefillEngine and one DecodeEngine driven through
-   submit -> step -> receive -> admit -> step, 8 greedy requests.  The
-   kernels' launch counters are read around this run.
-4. Device vs CPU: the same requests at full width, 2 layers, f32, once
-   on the card (kernels) and once on the CPU (plain versions): same
-   greedy tokens, first-chunk logits within tolerance.
-5. Numbers: prefill and decode tokens/s of the served run, and each
+   inputs, at the shapes of the served runs (every qwen2 prefill chunk,
+   the decode slot batches), with ragged lengths, pad segments and empty
+   slots on the scratch page, and a windowed case: the GQA kernels in
+   f32 and bf16 (2), the MLA decode kernel with f32 queries against f32
+   and bf16 latent pools (2b).
+3. Serve: one PrefillEngine and one DecodeEngine driven through submit
+   -> step -> receive -> admit -> step, 8 greedy requests, random
+   weights from a seeded generator, bf16: full-width qwen2-0.5b (3),
+   then DeepSeek-V2 at full width and 4 layers (3b: MLA latent pages,
+   routed MoE).  Every kernel's launch counter is set to 0 just before
+   each run and read just after it.
+4. Device vs CPU in f32, once on the card (kernels) and once on the CPU
+   (plain versions): qwen2-0.5b at 2 layers on the served requests (4),
+   DeepSeek-V2 at 2 layers (dense prefix + 1 routed) on 2 short requests
+   (4b): same greedy tokens, first-chunk logits within tolerance.
+5. Numbers: prefill and decode tokens/s of the served runs, and each
    kernel's time at the served shapes beside its bound, its plain
    version and one PyTorch library call, measured with CUDA events.
 
@@ -55,6 +60,18 @@ TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 # full-width layers and a 151,936-word head: summation order only
 LOGIT_TOL = 1e-3
 WINDOW = 200                               # the windowed kernel case
+DS_ARCH = "deepseek_v2_236b"
+DS_CHECK = dict(n=2, lo=16, hi=64, new=4)  # phase 4b requests
+# phase 4b: a router probability gap (k-th minus (k+1)-th expert) below
+# this may flip a top-k choice between the card's and the CPU's f32
+# summation orders; a diverging token stream is then reported as such
+NEAR_TIE = 1e-4
+SOURCES = {"paged_prefill_attention":
+           "src/repro/kernels/paged_prefill_attention.py:101",
+           "paged_decode_attention":
+           "src/repro/kernels/paged_decode_attention.py:91",
+           "paged_mla_decode_attention":
+           "src/repro/kernels/paged_mla_decode_attention.py:92"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -241,6 +258,64 @@ def sdpa_decode_call(q, k_pool, v_pool, bt, lens):
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
 
+def random_latent_pools(cfg, n_pages, page, dtype, device, gen):
+    import torch
+    m = cfg.mla
+    return tuple(torch.randn((n_pages + 1, page, w), generator=gen,
+                             device=device).to(dtype)
+                 for w in (m.kv_lora_rank, m.qk_rope_head_dim))
+
+
+def mla_args(cfg, g, pools, device, gen):
+    """(q_lat, q_rope, ckv_pool, kr_pool, block_table, lens) as
+    ``mla_decode_paged`` passes them: f32 queries (absorbed through
+    W_uk), pools in the model's dtype."""
+    import torch
+    b, h, m = g["bt"].shape[0], cfg.n_heads, cfg.mla
+    q_lat = torch.randn((b, h, m.kv_lora_rank), generator=gen, device=device)
+    q_rope = torch.randn((b, h, m.qk_rope_head_dim), generator=gen,
+                         device=device)
+    return (q_lat, q_rope, *pools, torch.from_numpy(g["bt"]).to(device),
+            torch.from_numpy(g["lens"]).to(device))
+
+
+def mla_work(q_lat, q_rope, ckv_pool, kr_pool, bt, lens):
+    """(bytes, FLOPs): the queries read and o_lat written once, each live
+    latent page ([ckv | kr], 576 values a token at full width) read once,
+    and 2 * h * (lora + rope + lora) FLOPs per live (slot, token)."""
+    b, h, lora = q_lat.shape
+    rope, page = q_rope.shape[2], ckv_pool.shape[1]
+    ln = lens.cpu().numpy().astype(np.int64)
+    pages = np.minimum(-(-ln // page), bt.shape[1]).sum()
+    nbytes = (q_lat.numel() * q_lat.element_size() * 2
+              + q_rope.numel() * q_rope.element_size()
+              + pages * page * (lora * ckv_pool.element_size()
+                                + rope * kr_pool.element_size())
+              + 4 * (bt.numel() + b))
+    return nbytes, int(ln.sum()) * 2 * h * (2 * lora + rope)
+
+
+def sdpa_mla_call(q_lat, q_rope, ckv_pool, kr_pool, bt, lens, scale):
+    """One library call computing the absorbed MLA decode on the latent
+    gathered densely (f32): the h heads are the query rows of one shared
+    latent head, k = [ckv | kr], v = ckv, with the length mask."""
+    import torch
+    import torch.nn.functional as F
+    b, h, lora = q_lat.shape
+    n_keys = max(1, int(lens.max()))
+    page = ckv_pool.shape[1]
+    slots = bt[:, :-(-n_keys // page)].long()
+    ckv = ckv_pool[slots].reshape(b, -1, lora)[:, :n_keys].float()
+    kr = kr_pool[slots].reshape(b, -1, kr_pool.shape[2])[:, :n_keys].float()
+    k = torch.cat([ckv, kr], dim=-1)[:, None]            # (b, 1, S, 576)
+    v = ckv[:, None].contiguous()                        # (b, 1, S, 512)
+    q = torch.cat([q_lat, q_rope], dim=-1)[:, None]      # (b, 1, h, 576)
+    mask = (torch.arange(n_keys, device=q.device)[None, :]
+            < lens.long()[:, None])[:, None, None]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  scale=scale)
+
+
 def cuda_ms(fn, reps: int = 10) -> float:
     import torch
     fn()
@@ -308,6 +383,106 @@ def check_kernels(cfg, reqs, device):
             check(err <= tol, f"{name} disagrees with its plain version "
                   f"in {dtype}: {err} > {tol}")
     return worst, chunks, slot_cases
+
+
+def check_mla_kernel(cfg, reqs, device):
+    """Phase 2b: the MLA decode kernel vs its plain version at the
+    DeepSeek-V2 served decode shapes: f32 queries against f32 and bf16
+    latent pools, window 0 and WINDOW, full and partly empty slot
+    batches.  Returns (max abs error of the bf16-pool case, the slot
+    geometries)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_mla_decode_attention import (
+        paged_mla_decode_attention)
+    from repro_torch.models.attention import mla_scale
+    kw = {k: SERVE[k] for k in ("page_size", "max_seq", "n_pages")}
+    slot_cases = [decode_geometry(reqs, max_slots=SERVE["max_slots"],
+                                  empty=e, **kw) for e in (0, 3)]
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    tol = TOL["torch.float32"]               # o_lat takes q_lat's f32
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        pools = random_latent_pools(cfg, SERVE["n_pages"],
+                                    SERVE["page_size"], dtype, device, gen)
+        err = 0.0
+        for window in (0, WINDOW):
+            for g in slot_cases:
+                args = mla_args(cfg, g, pools, device, gen)
+                kwa = dict(scale=mla_scale(cfg), window=window)
+                got = paged_mla_decode_attention(*args, **kwa)
+                exp = ref.paged_mla_decode_attention(*args, **kwa)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()), "mla: non-finite")
+                empty = torch.from_numpy(g["lens"] == 0).to(device)
+                check(float(got[empty].abs().sum()) == 0.0,
+                      "mla: an empty slot did not give zeros")
+                err = max(err, float((got - exp).abs().max()))
+        print(f"phase 2b: paged_mla_decode_attention vs plain, f32 queries, "
+              f"{dtype} pools, {len(slot_cases)} served slot batches x "
+              f"window 0/{WINDOW}: max abs err {err:.3e} (tolerance "
+              f"{tol:g})")
+        check(err <= tol, f"paged_mla_decode_attention disagrees with its "
+              f"plain version on {dtype} pools: {err} > {tol}")
+        worst = err
+    return worst, slot_cases
+
+
+class TieRecorder:
+    """Records, per model call (prefill chunk or decode iteration), the
+    smallest router margin (k-th minus (k+1)-th expert probability over
+    every token the MoE routes, pad tokens and dead slots included: they
+    take capacity too) and the smallest top-2 logit gap over the rows
+    with tokens.  Wraps ``mlp.moe_forward``, ``model.prefill_paged`` and
+    ``model.decode_logits_paged`` while active."""
+
+    def __init__(self):
+        self.calls = []
+        self._router = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import mlp as MLP
+        from repro_torch.models import model as M
+        self._saved = (MLP.moe_forward, M.prefill_paged,
+                       M.decode_logits_paged)
+        moe_forward, prefill_paged, decode_logits = self._saved
+
+        def gap(logits, rows):
+            top = torch.topk(logits[rows].float(), 2, dim=-1).values
+            return float((top[:, 0] - top[:, 1]).min())
+
+        def moe(p, cfg, x, *a, **kw):
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                  @ p["router"].float(), dim=-1)
+            top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values
+            self._router.append(float((top[:, -2] - top[:, -1]).min()))
+            return moe_forward(p, cfg, x, *a, **kw)
+
+        def prefill(params, cfg, tokens, q_offset, kv_len, *a, **kw):
+            nxt, logits = prefill_paged(params, cfg, tokens, q_offset,
+                                        kv_len, *a, **kw)
+            self._note(gap(logits, kv_len > 0))
+            return nxt, logits
+
+        def decode(params, cfg, tokens, pos, pages, offs, bt, lens, *a):
+            logits = decode_logits(params, cfg, tokens, pos, pages, offs, bt,
+                                   lens, *a)
+            self._note(gap(logits, lens > 0))
+            return logits
+        MLP.moe_forward, M.prefill_paged, M.decode_logits_paged = (
+            moe, prefill, decode)
+        return self
+
+    def _note(self, logit_gap):
+        self.calls.append(dict(router=min(self._router, default=1.0),
+                               logit=logit_gap))
+        self._router = []
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mlp as MLP
+        from repro_torch.models import model as M
+        MLP.moe_forward, M.prefill_paged, M.decode_logits_paged = self._saved
 
 
 def serve(cfg, params, reqs, device, time_it=False):
@@ -382,6 +557,143 @@ def first_chunk_logits(cfg, params, g, reqs, device):
     return logits[:n_real].float().cpu()
 
 
+def to_device(tree, device):
+    """A params dict (nested dicts and lists of tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def count_params(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(count_params(v) for v in tree)
+    return tree.numel()
+
+
+def zero_launches(kernels) -> None:
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def serve_phase(tag, cfg, params, device, kernels, card):
+    """Phase 3/3b: warm up, then serve the N_REQUESTS requests (tokens
+    drawn in ``cfg``'s vocabulary) with every launch counter set to 0
+    just before and read just after.  Checks the run and prints its
+    numbers; returns (launches by kernel, prefill engine, decode
+    engine)."""
+    reqs = make_requests(cfg.vocab_size)
+    warm = make_requests(cfg.vocab_size, n=1, lo=64, hi=64, new=2)
+    serve(cfg, params, warm, device)            # warm-up: libraries, cuBLAS
+    zero_launches(kernels)
+    out, pe, de, t_pre, t_dec = serve(cfg, params, reqs, device,
+                                      time_it=True)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    check(len(out) == len(reqs), f"{len(out)} of {len(reqs)} finished")
+    for rid, toks in out.items():
+        check(len(toks) == NEW_TOKENS, f"{rid}: {len(toks)} tokens")
+        check(all(0 <= x < cfg.vocab_size for x in toks), f"{rid}: token "
+              "out of the vocabulary")
+    check(pe.alloc.used_pages == 0 and de.alloc.used_pages == 0,
+          f"pages left: prefill {pe.alloc.used_pages}, decode "
+          f"{de.alloc.used_pages}")
+    n_prompt = sum(r.prompt_len for r in reqs)
+    n_decoded = sum(len(t) - 1 for t in out.values())
+    print(f"phase {tag}: served {len(out)} requests, {pe.fused_calls} fused "
+          f"prefill calls, {de.iterations} decode iterations, launches "
+          f"{launches}, pages left 0/0")
+    print(f"phase {tag}: prefill {n_prompt} tokens in {t_pre:.3f} s = "
+          f"{n_prompt / t_pre:.1f} tokens/s; decode {n_decoded} tokens in "
+          f"{t_dec:.3f} s = {n_decoded / t_dec:.1f} tokens/s ({card})")
+    return launches, pe, de
+
+
+def deepseek_vs_cpu(device):
+    """Phase 4b: DeepSeek-V2 at full width, 2 layers (dense prefix + 1
+    routed), f32, weights drawn on the card and copied to the CPU; the
+    same 2 short requests served on both; first-chunk logits within
+    LOGIT_TOL, token streams identical unless a routing near-tie or a
+    near-tied argmax explains the divergence (printed as such)."""
+    import torch
+    from repro_torch.configs.deepseek_v2_236b import served
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(served(2), dtype="float32")
+    t0 = time.perf_counter()
+    gpu_params = M.init_params(
+        cfg, torch.Generator(device=device).manual_seed(SEED + 4), device)
+    cpu_params = to_device(gpu_params, "cpu")
+    reqs = make_requests(cfg.vocab_size, **DS_CHECK)
+    runs = []
+    for dev, params in ((device, gpu_params), ("cpu", cpu_params)):
+        with TieRecorder() as rec:
+            out, pe, _, _, _ = serve(cfg, params, make_requests(
+                cfg.vocab_size, **DS_CHECK), dev)
+        check(pe.fused_calls == 1, "phase 4b: the prompts took more than "
+              "one chunk")
+        runs.append((out, rec.calls))
+    g = prefill_geometry(reqs, SERVE["chunk_size"], SERVE["page_size"],
+                         SERVE["max_seq"], SERVE["n_pages"])[0]
+    lg_gpu = first_chunk_logits(cfg, gpu_params, g, reqs, device)
+    lg_cpu = first_chunk_logits(cfg, cpu_params, g, reqs, "cpu")
+    lerr = float((lg_gpu - lg_cpu).abs().max())
+    check(lerr <= LOGIT_TOL, f"phase 4b: first-chunk logits differ by {lerr}")
+    (out_gpu, calls_gpu), (out_cpu, calls_cpu) = runs
+    check(set(out_gpu) == set(out_cpu) == {r.rid for r in reqs},
+          "phase 4b: not every request finished")
+    # call j of a run emitted token j of every request (one prefill chunk,
+    # then one token per decode iteration)
+    diverge = [min(j for j, (a, b) in enumerate(zip(out_gpu[rid],
+                                                    out_cpu[rid])) if a != b)
+               for rid in out_gpu if out_gpu[rid] != out_cpu[rid]]
+    router = min(c["router"] for c in calls_gpu + calls_cpu)
+    print(f"phase 4b: smallest router margin {router:.3e}, smallest top-2 "
+          f"logit gap {min(c['logit'] for c in calls_cpu):.3e}")
+    if diverge:
+        j = min(diverge)
+        margin = min(c["router"] for c in calls_gpu[:j + 1]
+                     + calls_cpu[:j + 1])
+        gap = min(calls_gpu[j]["logit"], calls_cpu[j]["logit"])
+        tie = margin < NEAR_TIE or gap < LOGIT_TOL
+        print(f"phase 4b: token streams DIFFER from token {j} on: router "
+              f"margin {margin:.3e} up to that call, top-2 logit gap "
+              f"{gap:.3e} there: "
+              + ("traced to a near-tie" if tie else "NOT a near-tie"))
+        check(tie, "phase 4b: device and CPU streams differ without a "
+              "near-tie")
+    else:
+        print(f"phase 4b: {len(out_gpu)} token streams identical")
+    print(f"phase 4b: DeepSeek-V2 2-layer f32 device vs CPU: first-chunk "
+          f"logits max abs err {lerr:.3e} (tolerance {LOGIT_TOL:g}), "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def time_kernel(name, cases, kern, plain, lib, work, dtype, card):
+    """Phase 5: mean ms per launch over ``cases`` (tuples of arguments)
+    of the kernel, its plain version and the library call, and the
+    bound."""
+    ms = plain_ms = lib_ms = bnd = 0.0
+    by_bytes = 0
+    for a in cases:
+        ms += cuda_ms(lambda: kern(*a))
+        plain_ms += cuda_ms(lambda: plain(*a))
+        lib_ms += cuda_ms(lib(*a))
+        b, by = bound(*work(a), dtype)
+        bnd += b
+        by_bytes += by == "bytes"
+    n = len(cases)
+    tm = dict(ms=ms / n, plain_ms=plain_ms / n, library_ms=lib_ms / n,
+              bound_ms=bnd / n,
+              bound_by="bytes" if by_bytes * 2 >= n else "operations")
+    print(f"phase 5: {name}, bf16, mean over {n} served shape(s): kernel "
+          f"{tm['ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
+          f"({tm['bound_by']}), plain {tm['plain_ms']:.4f} ms, "
+          f"scaled_dot_product_attention {tm['library_ms']:.4f} ms ({card})")
+    return tm
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -390,22 +702,32 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.configs.deepseek_v2_236b import served
+    from repro_torch.core.backend import backend_for
     from repro_torch.kernels import build
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention)
+    from repro_torch.kernels.paged_mla_decode_attention import (
+        paged_mla_decode_attention)
     from repro_torch.kernels.paged_prefill_attention import (
         paged_prefill_attention)
     from repro_torch.models import model as M
+    from repro_torch.models.attention import mla_scale
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.device_count()} device(s)")
+    kernels = {"paged_prefill_attention": paged_prefill_attention,
+               "paged_decode_attention": paged_decode_attention,
+               "paged_mla_decode_attention": paged_mla_decode_attention}
+    check(tuple(kernels) == build.NAMES, f"kernels {build.NAMES}")
 
     # -- phase 1: build ------------------------------------------------
     t0 = time.perf_counter()
@@ -419,47 +741,53 @@ def main() -> int:
     print(f"phase 1: build {time.perf_counter() - t0:.1f} s")
 
     cfg = get_config("qwen2_0_5b")
+    ds_cfg = served()
     reqs = make_requests(cfg.vocab_size)
     print(f"requests: prompt lengths {[r.prompt_len for r in reqs]}, "
           f"{NEW_TOKENS} new tokens each")
 
     # -- phase 2: kernels vs plain versions at the served shapes ---------
     errs, chunks, slot_cases = check_kernels(cfg, reqs, device)
+    errs["paged_mla_decode_attention"], mla_slots = check_mla_kernel(
+        ds_cfg, reqs, device)
 
     # -- phase 3: serve full-width qwen2-0.5b in bf16 --------------------
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = M.init_params(cfg, gen, device)
-    warm = make_requests(cfg.vocab_size, n=1, lo=64, hi=64, new=2)
-    serve(cfg, params, warm, device)            # warm-up: libraries, cuBLAS
-    paged_prefill_attention.launches = 0
-    paged_decode_attention.launches = 0
-    out, pe, de, t_pre, t_dec = serve(cfg, params,
-                                      make_requests(cfg.vocab_size), device,
-                                      time_it=True)
-    launches = {"paged_prefill_attention": paged_prefill_attention.launches,
-                "paged_decode_attention": paged_decode_attention.launches}
-    check(len(out) == N_REQUESTS, f"{len(out)} of {N_REQUESTS} finished")
-    for rid, toks in out.items():
-        check(len(toks) == NEW_TOKENS, f"{rid}: {len(toks)} tokens")
-        check(all(0 <= x < cfg.vocab_size for x in toks), f"{rid}: token "
-              "out of the vocabulary")
-    check(pe.alloc.used_pages == 0 and de.alloc.used_pages == 0,
-          f"pages left: prefill {pe.alloc.used_pages}, decode "
-          f"{de.alloc.used_pages}")
+    launches, pe, de = serve_phase("3", cfg, params, device, kernels, card)
     check(launches["paged_prefill_attention"]
           >= cfg.n_layers * pe.fused_calls > 0, f"prefill launches "
           f"{launches} < {cfg.n_layers} x {pe.fused_calls} fused calls")
     check(launches["paged_decode_attention"]
           >= cfg.n_layers * de.iterations > 0, f"decode launches "
           f"{launches} < {cfg.n_layers} x {de.iterations} iterations")
-    n_prompt = sum(r.prompt_len for r in reqs)
-    n_decoded = sum(len(t) - 1 for t in out.values())
-    print(f"phase 3: served {len(out)} requests, {pe.fused_calls} fused "
-          f"prefill calls, {de.iterations} decode iterations, launches "
-          f"{launches}, pages left 0/0")
-    print(f"phase 3: prefill {n_prompt} tokens in {t_pre:.3f} s = "
-          f"{n_prompt / t_pre:.1f} tokens/s; decode {n_decoded} tokens in "
-          f"{t_dec:.3f} s = {n_decoded / t_dec:.1f} tokens/s ({card})")
+    del params, pe, de
+    torch.cuda.empty_cache()
+
+    # -- phase 3b: serve full-width DeepSeek-V2, 4 layers, bf16 ----------
+    t0 = time.perf_counter()
+    params = M.init_params(ds_cfg, torch.Generator(device=device)
+                           .manual_seed(SEED), device)
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    print(f"phase 3b: {ds_cfg.name} at {ds_cfg.n_layers} of 60 layers, "
+          f"full width, {n_params / 1e9:.2f} G parameters in bf16, drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ds_launches, pe, de = serve_phase("3b", ds_cfg, params, device,
+                                      kernels, card)
+    check(ds_launches["paged_mla_decode_attention"]
+          >= ds_cfg.n_layers * de.iterations > 0, f"MLA decode launches "
+          f"{ds_launches} < {ds_cfg.n_layers} x {de.iterations} iterations")
+    spec, ps = backend_for(ds_cfg), SERVE["page_size"]
+    shipped = sum(-(-r.prompt_len // ps) * ps for r in reqs)
+    check(spec.layout == "latent" and spec.token_width == 576
+          and pe.network.bytes_sent
+          == shipped * ds_cfg.n_layers * spec.page_token_bytes,
+          f"backend {spec}, {pe.network.bytes_sent} bytes sent")
+    print(f"phase 3b: latent wire bytes per token per layer "
+          f"{spec.page_token_bytes} ({spec.token_width} bf16 scalars); "
+          f"{pe.network.bytes_sent} bytes for {shipped} page-aligned "
+          f"prompt tokens x {ds_cfg.n_layers} layers")
     del params, pe, de
     torch.cuda.empty_cache()
 
@@ -467,12 +795,7 @@ def main() -> int:
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     cpu_params = M.init_params(cfg2, torch.Generator().manual_seed(SEED + 1),
                                "cpu")
-    gpu_params = {k: v.to(device) for k, v in cpu_params.items()
-                  if k != "layers"}
-    gpu_params["layers"] = [
-        {k: ({n: t.to(device) for n, t in v.items()} if isinstance(v, dict)
-             else v.to(device)) for k, v in layer.items()}
-        for layer in cpu_params["layers"]]
+    gpu_params = to_device(cpu_params, device)
     t0 = time.perf_counter()
     out_gpu = serve(cfg2, gpu_params, make_requests(cfg.vocab_size),
                     device)[0]
@@ -488,54 +811,53 @@ def main() -> int:
           f"(tolerance {LOGIT_TOL:g}), {time.perf_counter() - t0:.1f} s")
     del gpu_params, cpu_params
 
+    # -- phase 4b: DeepSeek-V2 device vs CPU, 2 layers, f32 --------------
+    deepseek_vs_cpu(device)
+    torch.cuda.empty_cache()
+
     # -- phase 5: kernel times at the served shapes (bf16) ---------------
     dtype = torch.bfloat16
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     pools = random_pools(cfg, SERVE["n_pages"], SERVE["page_size"], dtype,
                          device, gen)
+    lat = random_latent_pools(ds_cfg, SERVE["n_pages"], SERVE["page_size"],
+                              dtype, device, gen)
+    scale = mla_scale(ds_cfg)
+    timing = {
+        "paged_prefill_attention": time_kernel(
+            "paged_prefill_attention",
+            [prefill_args(cfg, g, pools, dtype, device, gen)
+             for g in chunks],
+            paged_prefill_attention, ref.paged_prefill_attention,
+            sdpa_prefill_call, lambda a: prefill_work(a[0], a[1], *a[3:]),
+            dtype, card),
+        "paged_decode_attention": time_kernel(
+            "paged_decode_attention",
+            [decode_args(cfg, g, pools, dtype, device, gen)
+             for g in slot_cases[:1]],
+            paged_decode_attention, ref.paged_decode_attention,
+            sdpa_decode_call, lambda a: decode_work(a[0], a[1], *a[3:]),
+            dtype, card),
+        "paged_mla_decode_attention": time_kernel(
+            "paged_mla_decode_attention",
+            [mla_args(ds_cfg, g, lat, device, gen) for g in mla_slots[:1]],
+            lambda *a: paged_mla_decode_attention(*a, scale=scale),
+            lambda *a: ref.paged_mla_decode_attention(*a, scale=scale),
+            lambda *a: sdpa_mla_call(*a, scale), lambda a: mla_work(*a),
+            dtype, card)}
+    launches["paged_mla_decode_attention"] = ds_launches[
+        "paged_mla_decode_attention"]
     rows = []
-    timing = {}
-    pre = [prefill_args(cfg, g, pools, dtype, device, gen) for g in chunks]
-    dec = [decode_args(cfg, g, pools, dtype, device, gen)
-           for g in slot_cases[:1]]
-    for name, cases, kern, plain, lib, work in (
-            ("paged_prefill_attention", pre, paged_prefill_attention,
-             ref.paged_prefill_attention, sdpa_prefill_call,
-             lambda a: prefill_work(a[0], a[1], *a[3:])),
-            ("paged_decode_attention", dec, paged_decode_attention,
-             ref.paged_decode_attention, sdpa_decode_call,
-             lambda a: decode_work(a[0], a[1], *a[3:]))):
-        ms = plain_ms = lib_ms = bnd = 0.0
-        by_bytes = 0
-        for a in cases:
-            ms += cuda_ms(lambda: kern(*a))
-            plain_ms += cuda_ms(lambda: plain(*a))
-            lib_ms += cuda_ms(lib(*a))
-            b, by = bound(*work(a), dtype)
-            bnd += b
-            by_bytes += by == "bytes"
-        n = len(cases)
-        timing[name] = dict(ms=ms / n, plain_ms=plain_ms / n,
-                            library_ms=lib_ms / n, bound_ms=bnd / n,
-                            bound_by="bytes" if by_bytes * 2 >= n
-                            else "operations")
-        print(f"phase 5: {name}, bf16, mean over {n} served shape(s): "
-              f"kernel {ms / n:.4f} ms, bound {bnd / n:.4f} ms "
-              f"({timing[name]['bound_by']}), plain {plain_ms / n:.4f} ms, "
-              f"scaled_dot_product_attention {lib_ms / n:.4f} ms ({card})")
-    sources = {"paged_prefill_attention":
-               "src/repro/kernels/paged_prefill_attention.py:101",
-               "paged_decode_attention":
-               "src/repro/kernels/paged_decode_attention.py:91"}
     for name in build.NAMES:
         tm = timing[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": sources[name], "launches": launches[name],
+            "replaces": SOURCES[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]})
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

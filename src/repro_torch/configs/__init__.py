@@ -2,8 +2,9 @@
 
 ``get_config(arch_id)`` returns the full-size ModelConfig;
 ``get_smoke_config(arch_id)`` the reduced same-family variant used by the
-CPU tests.  Only the architectures whose paths are ported are listed;
-the others come with their slices.
+CPU tests.  Only the architectures whose paths are ported are listed:
+qwen2-0.5b (paged GQA) and DeepSeek-V2 (MLA latent pages and routed
+MoE).  The others come with their slices.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig, reduced
 
-ARCH_IDS = ("qwen2_0_5b",)
+ARCH_IDS = ("qwen2_0_5b", "deepseek_v2_236b")
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 

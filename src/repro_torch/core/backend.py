@@ -1,11 +1,13 @@
 """Execution-backend selection for the port's engines.
 
 Both engines resolve their backend through ``backend_for``, as in the
-reference.  This slice ports one backend: ``paged`` with the ``gqa``
-layout (pool pages hold per-head K/V, 2 * n_kv_heads * head_dim
-scalars per token per layer).  A config or request that needs another
-one — the dense backend (recurrent/hybrid archs), the MLA latent
-layout, sliding-window or cross-attention paging — raises
+reference.  This slice ports the ``paged`` backend with two layouts:
+``gqa`` (pool pages hold per-head K/V, 2 * n_kv_heads * head_dim
+scalars per token per layer) and ``latent`` for MLA (the compressed
+latent plus the decoupled RoPE key, kv_lora_rank + qk_rope_head_dim
+scalars per token per layer: 576 for DeepSeek-V2).  A config or request
+that needs another one — the dense backend (recurrent/hybrid archs),
+sliding-window or cross-attention paging — raises
 ``NotImplementedError`` naming the slice that brings it; nothing falls
 back quietly.
 """
@@ -21,7 +23,7 @@ from repro_torch.models.config import ModelConfig
 class BackendSpec:
     """Resolved execution backend for one model config."""
     backend: str            # "paged"
-    layout: str             # "gqa"
+    layout: str             # "gqa" | "latent"
     window: int             # sliding window in tokens (0 = unlimited)
     token_width: int        # pool scalars per token per layer
     page_token_bytes: int   # wire/pool bytes per token per layer
@@ -35,16 +37,14 @@ class BackendSpec:
 
 
 def backend_for(cfg: ModelConfig, requested: str = "auto") -> BackendSpec:
-    """Resolve the execution backend for ``cfg`` (paged GQA only)."""
+    """Resolve the execution backend for ``cfg`` (paged, GQA or MLA
+    latent layout)."""
     if requested not in ("auto", "paged", "dense"):
         raise ValueError(f"unknown backend {requested!r}")
     if requested == "dense":
         raise NotImplementedError(
             "dense backend: comes with the dense and recurrent backends "
             "slice")
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA latent pages come with the MLA slice")
     if cfg.n_cross_layers or cfg.encoder is not None:
         raise NotImplementedError(
             f"{cfg.name}: cross-attention pages come with the "
@@ -58,7 +58,12 @@ def backend_for(cfg: ModelConfig, requested: str = "auto") -> BackendSpec:
             f"{cfg.name}: block kinds {sorted(set(cfg.layer_kinds))} need "
             "the dense backend, which comes with its slice")
     dtype_bytes = 2 if cfg.dtype == "bfloat16" else 4
-    width = 2 * cfg.n_kv_heads * cfg.resolved_head_dim
-    return BackendSpec(backend="paged", layout="gqa", window=0,
+    if cfg.mla is not None:
+        layout = "latent"
+        width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+    else:
+        layout = "gqa"
+        width = 2 * cfg.n_kv_heads * cfg.resolved_head_dim
+    return BackendSpec(backend="paged", layout=layout, window=0,
                        token_width=width,
                        page_token_bytes=width * dtype_bytes)

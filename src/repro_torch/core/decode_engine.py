@@ -7,7 +7,8 @@ reserve-dynamic) decides which queued requests join each iteration
 against the paged-KV allocator.  K/V lives in a shared device
 ``PagePool``; admission INSTALLS the received page contents (in place)
 and a block-table row, every iteration runs the full slot batch through
-the CUDA paged-decode kernel, block tables grow page-at-a-time via the
+the CUDA paged-decode kernel (the paged MLA decode kernel over latent
+pages for MLA configs), block tables grow page-at-a-time via the
 allocator's ``append_token``, and argmax stays on the device (one int
 per slot crosses to the host).
 

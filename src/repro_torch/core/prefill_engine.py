@@ -36,9 +36,11 @@ from repro_torch.runtime.request import Phase, Request
 @dataclasses.dataclass
 class PrefilledKV:
     """What the dispatcher ships to a decode instance: the request's
-    LIVE page contents ``pages_k``/``pages_v``, (L, n_pages, page, kvh,
-    hd) copies, plus ``kv_len`` valid tokens.  The receiver installs
-    them into its own pool and builds a block-table row."""
+    LIVE page contents ``pages_k``/``pages_v``, copies of (L, n_pages,
+    page, kvh, hd) K/V pages or, for MLA, of (L, n_pages, page, lora)
+    latent and (L, n_pages, page, rope) RoPE-key pages, plus ``kv_len``
+    valid tokens.  The receiver installs them into its own pool and
+    builds a block-table row."""
     req: Request
     first_token: int             # argmax token from prefill (the 'first token')
     transfer_delay_s: float      # emulated network wait
@@ -56,10 +58,18 @@ def make_page_pool(cfg: ModelConfig, n_pages: int, page_size: int,
                    device="cuda"):
     """Device pool with one extra physical page past the allocator's
     range — the scratch ("trash") page pad tokens and dead slots scatter
-    to.  Returns (pool, trash_page_id)."""
-    pool = PagePool.create(cfg.n_layers, n_pages + 1, page_size,
-                           cfg.n_kv_heads, cfg.resolved_head_dim,
-                           dtype=M.torch_dtype(cfg), device=device)
+    to.  MLA configs get the latent layout (compressed latent + RoPE key
+    pages), everything else per-head GQA K/V pages.
+    Returns (pool, trash_page_id)."""
+    dtype = M.torch_dtype(cfg)
+    if backend_for(cfg).layout == "latent":
+        pool = PagePool.create_latent(
+            cfg.n_layers, n_pages + 1, page_size, cfg.mla.kv_lora_rank,
+            cfg.mla.qk_rope_head_dim, dtype=dtype, device=device)
+    else:
+        pool = PagePool.create(cfg.n_layers, n_pages + 1, page_size,
+                               cfg.n_kv_heads, cfg.resolved_head_dim,
+                               dtype=dtype, device=device)
     return pool, n_pages
 
 

@@ -5,14 +5,17 @@ Where the reference switches the Pallas kernels to interpret mode off
 the TPU, the port dispatches on the tensors' device inside each kernel
 wrapper: the hand-written CUDA kernel for CUDA tensors, the plain
 PyTorch version for CPU tensors.  The model calls these, never a
-kernel directly.  Only the paged GQA forms of this slice are ported; the
-cross-attention and MLA wrappers come with their slices.
+kernel directly.  Ported: the paged GQA prefill and decode forms and
+the absorbed MLA decode; the dense chunked-prefill form and the
+cross-attention decode come with their slices.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+from repro_torch.kernels.paged_mla_decode_attention import (
+    paged_mla_decode_attention)
 from repro_torch.kernels.paged_prefill_attention import (
     paged_prefill_attention)
 
@@ -48,3 +51,14 @@ def decode_attention(q, k_pool, v_pool, block_table, lens, *,
         q.contiguous(), k_pool, v_pool, _i32(block_table, dev),
         _i32(lens, dev), window=window)
 
+
+def mla_decode_attention(q_lat, q_rope, ckv_pool, kr_pool, block_table,
+                         lens, *, scale: float, window: int = 0):
+    """Absorbed MLA decode over the paged latent pool: scores and PV run
+    in the compressed latent space; the caller up-projects the returned
+    (b, h, lora) through W_uv."""
+    dev = q_lat.device
+    return paged_mla_decode_attention(
+        q_lat.contiguous(), q_rope.contiguous(), ckv_pool, kr_pool,
+        _i32(block_table, dev), _i32(lens, dev), scale=scale,
+        window=window)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the paged-attention kernels.
+"""Plain PyTorch versions of the paged-attention kernels (GQA prefill,
+GQA decode, absorbed MLA decode).
 
 Each function computes what its CUDA kernel computes, with dense
 tensor ops: gather the block-table pages, masked softmax in f32, PV.
@@ -76,3 +77,28 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lens, *,
     p = _masked_softmax(s, mask[:, None, None])
     out = torch.einsum("bgrk,bkgd->bgrd", p, v)
     return out.reshape(b, h, hd_v).to(q.dtype)
+
+
+def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, kr_pool,
+                               block_table, lens, *, scale: float,
+                               window: int = 0):
+    """Absorbed MLA decode.  q_lat: (b, h, lora); q_rope: (b, h, rope);
+    ckv_pool: (n_pages, page, lora); kr_pool: (n_pages, page, rope);
+    block_table: (b, n_slots); lens: (b,).  Scores (q_lat . ckv +
+    q_rope . kr) * scale in f32, PV on the latent itself.  Returns
+    o_lat (b, h, lora) in q_lat's dtype."""
+    b, h, lora = q_lat.shape
+    page = kr_pool.shape[1]
+    n_keys = block_table.shape[1] * page
+    bt = block_table.long()
+    ckv = ckv_pool[bt].reshape(b, n_keys, lora).float()
+    kr = kr_pool[bt].reshape(b, n_keys, -1).float()
+    s = (torch.einsum("bhl,bkl->bhk", q_lat.float(), ckv)
+         + torch.einsum("bhr,bkr->bhk", q_rope.float(), kr)) * scale
+    tok = torch.arange(n_keys, device=q_lat.device)
+    ln = lens.long()[:, None]
+    mask = tok[None, :] < ln
+    if window:
+        mask = mask & (tok[None, :] > ln - 1 - window)
+    p = _masked_softmax(s, mask[:, None])
+    return torch.einsum("bhk,bkl->bhl", p, ckv).to(q_lat.dtype)

@@ -619,8 +619,12 @@ class PagedAllocator:
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class PagePool:
-    """Per-layer K/V page pools, GQA layout: k/v are (L, n_pages, page,
-    kvh, hd).  The MLA latent layout comes with the MLA slice.
+    """Per-layer K/V page pools.  GQA layout (``create``): k/v are (L,
+    n_pages, page, kvh, hd).  MLA latent layout (``create_latent``): the
+    pair holds (compressed latent, decoupled RoPE key), k: (L, n_pages,
+    page, kv_lora_rank) and v: (L, n_pages, page, qk_rope_head_dim).
+    Every op below indexes dim 1 only, so gather/install/copy_pages work
+    for both layouts.
 
     Unlike the reference, whose functional ``.at[].set`` returns new
     pools, ``install`` and ``copy_pages`` update ``k``/``v`` IN PLACE
@@ -639,6 +643,19 @@ class PagePool:
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
+    @classmethod
+    def create_latent(cls, n_layers: int, n_pages: int, page_size: int,
+                      kv_lora_rank: int, rope_dim: int,
+                      dtype=torch.bfloat16, device="cuda") -> "PagePool":
+        """MLA latent pool: per token the compressed latent
+        (kv_lora_rank) and the shared RoPE key (rope_dim), not per-head
+        K/V."""
+        return cls(
+            k=torch.zeros((n_layers, n_pages, page_size, kv_lora_rank),
+                          dtype=dtype, device=device),
+            v=torch.zeros((n_layers, n_pages, page_size, rope_dim),
+                          dtype=dtype, device=device))
+
     @property
     def page_size(self) -> int:
         return self.k.shape[2]
@@ -651,14 +668,14 @@ class PagePool:
     def gather(self, pages):
         """Extract the page contents for one request — what the prefill
         instance ships to decode.  pages: (n,) physical ids.  Returns a
-        copy (k, v) of shape (L, n, page, kvh, hd)."""
+        copy (k, v) of shape (L, n, page, ...)."""
         idx = self._index(pages)
         return self.k.index_select(1, idx), self.v.index_select(1, idx)
 
     def install(self, pages, k_pages, v_pages) -> "PagePool":
         """Install received page contents (all layers at once) into local
         physical pages, in place — decode-side admission.  pages: (n,)
-        ids; k_pages/v_pages: (L, n, page, kvh, hd)."""
+        ids; k_pages/v_pages: (L, n, page, ...)."""
         idx = self._index(pages)
         self.k.index_copy_(1, idx, k_pages.to(self.k.device, self.k.dtype))
         self.v.index_copy_(1, idx, v_pages.to(self.v.device, self.v.dtype))

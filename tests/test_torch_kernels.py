@@ -16,6 +16,8 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention)
+from repro_torch.kernels.paged_mla_decode_attention import (
+    head_group, paged_mla_decode_attention)
 from repro_torch.kernels.paged_prefill_attention import (
     paged_prefill_attention)
 
@@ -244,6 +246,16 @@ def test_wrappers_refuse_unsupported_devices():
         paged_decode_attention(q, q, q, q, q)
 
 
+def test_mla_wrapper_refuses_unsupported_devices_and_shapes():
+    q = torch.zeros(1, 2, 8, device="meta")
+    with pytest.raises(ValueError):
+        paged_mla_decode_attention(q, q, q, q, q, q, scale=1.0)
+    # full width: 16 heads of 512 + 64 latent columns per block (75 KB)
+    assert head_group(128, 512, 64, 16) == 16
+    with pytest.raises(ValueError):           # one page alone is too wide
+        head_group(128, 512, 64, 128)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("h,kvh,hd,page", [
@@ -291,3 +303,49 @@ def test_cuda_kernels_match_plain_versions(dtype, h, kvh, hd, page):
         assert float(got[1].float().abs().max()) == 0.0
     assert paged_prefill_attention.launches == before[0] + 2
     assert paged_decode_attention.launches == before[1] + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype,pool_dtype", [
+    ("float32", "float32"), ("float32", "bfloat16"),
+    ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("h,lora,rope,page", [
+    (128, 512, 64, 16),   # DeepSeek-V2 at full width
+    (4, 64, 16, 4),       # the smoke config, small pages
+    (12, 32, 16, 32),     # head groups of 4, long pages
+])
+def test_cuda_mla_kernel_matches_plain_version(q_dtype, pool_dtype, h, lora,
+                                               rope, page):
+    """On the card: the paged MLA decode kernel against its plain version
+    on the same CUDA inputs (f32 queries against an f32 or bf16 pool, as
+    the model calls it, and all-bf16): ragged lens across splits, a
+    lens = 0 slot on the scratch page, window 0 and 5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    tol = BF16_TOL if q_dtype == "bfloat16" else F32_TOL
+    npages, nslots, b = 60, 20, 4
+    trash, maxlen = npages - 1, nslots * page
+    rng = np.random.default_rng(9)
+    qdt, pdt = getattr(torch, q_dtype), getattr(torch, pool_dtype)
+
+    def t(shape, dt):
+        return torch.from_numpy(_rand(rng, shape)).to(dev).to(dt)
+    ql, qr = t((b, h, lora), qdt), t((b, h, rope), qdt)
+    cp, kr = t((npages, page, lora), pdt), t((npages, page, rope), pdt)
+    bt = rng.integers(0, trash, (b, nslots)).astype(np.int32)
+    bt[1] = trash
+    bt = torch.from_numpy(bt).to(dev)
+    lens = torch.tensor([1, 0, maxlen, maxlen // 2 + 3], dtype=torch.int32,
+                        device=dev)
+    before = paged_mla_decode_attention.launches
+    for window in (0, 5):
+        args = (ql, qr, cp, kr, bt, lens)
+        kw = dict(scale=(lora + rope) ** -0.5, window=window)
+        got = paged_mla_decode_attention(*args, **kw)
+        exp = ref.paged_mla_decode_attention(*args, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == qdt
+        assert float((got.float() - exp.float()).abs().max()) < tol
+        assert float(got[1].float().abs().max()) == 0.0
+    assert paged_mla_decode_attention.launches == before + 2
