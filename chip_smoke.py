@@ -7,24 +7,35 @@ Needs one NVIDIA Hopper card with CUDA, ``nvcc`` and the repository's
 ``src/`` beside this file; without a card it exits non-zero at once.
 Phases, in order (any failure exits non-zero):
 
-1. Build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
-   and print the card's name and power limit.
+1. Build the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one nvcc each, in parallel) and print the card's name and power
+   limit.
 2. Each kernel against its plain PyTorch version on the same CUDA
-   inputs, at the shapes of the served runs (every qwen2 prefill chunk,
-   the decode slot batches), with ragged lengths, pad segments and empty
+   inputs, at the shapes of the served runs (every prefill chunk, the
+   decode slot batches), with ragged lengths, pad segments and empty
    slots on the scratch page, and a windowed case: the GQA kernels in
-   f32 and bf16 (2), the MLA decode kernel with f32 queries against f32
-   and bf16 latent pools (2b).
+   f32 and bf16 at qwen2's widths (2) and at the cross models' (2a:
+   Llama-3.2-Vision's hd 128 with 4 query heads a KV head, Whisper's hd
+   64 with 1, each at its own served prompts), the MLA decode kernel
+   with f32 queries against f32 and bf16 latent pools (2b), and the
+   cross reads at Llama-3.2-Vision's and Whisper's served shapes (2c):
+   the cross decode kernel and the prefill kernel with
+   ``causal=False``.  bf16 outputs are held to a limit scaled by the
+   plain output's magnitude (``limit``).
 3. Serve: one PrefillEngine and one DecodeEngine driven through submit
    -> step -> receive -> admit -> step, 8 greedy requests, random
    weights from a seeded generator, bf16: full-width qwen2-0.5b (3),
-   then DeepSeek-V2 at full width and 4 layers (3b: MLA latent pages,
-   routed MoE).  Every kernel's launch counter is set to 0 just before
-   each run and read just after it.
+   DeepSeek-V2 at full width and 4 layers (3b: MLA latent pages, routed
+   MoE), Llama-3.2-Vision-11B at full width and depth (3c) and
+   Whisper-tiny whole (3d), both with read-only cross pages and stub
+   frontend embeddings.  Every kernel's launch counter is set to 0 just
+   before each run and read just after it.
 4. Device vs CPU in f32, once on the card (kernels) and once on the CPU
    (plain versions): qwen2-0.5b at 2 layers on the served requests (4),
    DeepSeek-V2 at 2 layers (dense prefix + 1 routed) on 2 short requests
-   (4b): same greedy tokens, first-chunk logits within tolerance.
+   (4b), Whisper-tiny whole and Llama-3.2-Vision at one pattern period
+   (5 layers) on 2 short requests (4c): same greedy tokens, first-chunk
+   logits within tolerance.
 5. Numbers: prefill and decode tokens/s of the served runs, and each
    kernel's time at the served shapes beside its bound, its plain
    version and one PyTorch library call, measured with CUDA events.
@@ -54,14 +65,26 @@ HBM_BPS = 3.35e12                          # H100 SXM device memory
 PEAK_FLOPS = {"torch.bfloat16": 989e12,    # dense tensor-core peak
               "torch.float32": 67e12}      # outside the tensor cores
 # max |kernel - plain| allowed: f32 differs only by summation order;
-# bf16 outputs may land one bf16 rounding apart (2^-8 of values ~1)
+# bf16 outputs may land a rounding or two apart, and one rounding is at
+# most 2^-7 of a value, so the bf16 limit is the smaller of 2e-2 and
+# BF16_REL of the case's largest |plain| output (see limit())
 TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+BF16_REL = 2.0 ** -6
 # device (cuBLAS, kernels) vs CPU (plain versions) f32 logits after two
 # full-width layers and a 151,936-word head: summation order only
 LOGIT_TOL = 1e-3
 WINDOW = 200                               # the windowed kernel case
 DS_ARCH = "deepseek_v2_236b"
 DS_CHECK = dict(n=2, lo=16, hi=64, new=4)  # phase 4b requests
+VLM_ARCH = "llama_3_2_vision_11b"
+WHISPER_ARCH = "whisper_tiny"
+# pages an engine of the cross-attention runs holds: a Llama-3.2-Vision
+# request holds 100 read-only cross pages (1600 patches) and up to 98
+# self pages, so 8 of them need at most 1,584
+CROSS_PAGES = 2048
+WHISPER_PROMPTS = (32, 400)    # + 32 new tokens stay within 448 positions
+CROSS_CHECK = dict(n=2, lo=16, hi=64, new=4)   # phase 4c requests
+VLM_CHECK_LAYERS = 5           # one pattern period, cross layer at 3
 # phase 4b: a router probability gap (k-th minus (k+1)-th expert) below
 # this may flip a top-k choice between the card's and the CPU's f32
 # summation orders; a diverging token stream is then reported as such
@@ -71,12 +94,34 @@ SOURCES = {"paged_prefill_attention":
            "paged_decode_attention":
            "src/repro/kernels/paged_decode_attention.py:91",
            "paged_mla_decode_attention":
-           "src/repro/kernels/paged_mla_decode_attention.py:92"}
+           "src/repro/kernels/paged_mla_decode_attention.py:92",
+           "paged_cross_decode_attention":
+           "src/repro/kernels/paged_cross_decode_attention.py:87"}
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def limit(exp) -> float:
+    """The tolerance of one kernel-vs-plain comparison whose plain output
+    is ``exp`` (the kernel's output type)."""
+    tol = TOL[str(exp.dtype)]
+    if str(exp.dtype) == "torch.bfloat16":
+        tol = min(tol, BF16_REL * float(exp.float().abs().max()))
+    return tol
+
+
+def compare(name, got, exp, worst):
+    """max |got - exp|, checked against limit(exp); ``worst`` (a dict of
+    [largest error, largest error / limit] by name) keeps the case's
+    numbers."""
+    err, tol = float((got.float() - exp.float()).abs().max()), limit(exp)
+    check(err <= tol, f"{name} disagrees with its plain version in "
+          f"{exp.dtype}: {err} > {tol}")
+    w = worst.setdefault(name, [0.0, 0.0])
+    w[0], w[1] = max(w[0], err), max(w[1], err / tol if tol else 0.0)
 
 
 def card_line() -> str:
@@ -90,13 +135,17 @@ def card_line() -> str:
 # requests and the geometry the served run gives the kernels
 # ---------------------------------------------------------------------------
 def make_requests(vocab: int, n: int = N_REQUESTS, lo: int = PROMPT_RANGE[0],
-                  hi: int = PROMPT_RANGE[1], new: int = NEW_TOKENS):
+                  hi: int = PROMPT_RANGE[1], new: int = NEW_TOKENS,
+                  enc=None):
+    """``n`` greedy requests from SEED; ``enc`` (n, enc_ctx, d), when
+    given, holds each request's frontend embeddings."""
     from repro_torch.runtime.request import Request, SamplingParams
     rng = np.random.default_rng(SEED)
     lens = rng.integers(lo, hi + 1, n)
     return [Request(rid=f"r{i}", prompt_len=int(n_tok), decode_len=new,
                     prompt_tokens=rng.integers(0, vocab, int(n_tok))
                     .astype(np.int32),
+                    enc_embeds=None if enc is None else enc[i],
                     sampling=SamplingParams(max_new_tokens=new))
             for i, n_tok in enumerate(lens)]
 
@@ -124,13 +173,12 @@ def prefill_geometry(reqs, chunk_size, page_size, max_seq, n_pages):
         sq = 1 << max(0, max(s.length for s in segs) - 1).bit_length()
         g = dict(bt=np.full((ns, width), trash, np.int32),
                  kv_len=np.zeros(ns, np.int32), q_off=np.zeros(ns, np.int32),
-                 length=np.zeros(ns, np.int32), sq=sq)
+                 sq=sq)
         for i, s in enumerate(segs):
             table = alloc.table_padded(s.rid, trash)
             g["bt"][i, :len(table)] = table
             g["q_off"][i] = s.req_start
             g["kv_len"][i] = s.req_start + s.length
-            g["length"][i] = s.length
         out.append(g)
     return out
 
@@ -151,6 +199,51 @@ def decode_geometry(reqs, page_size, max_seq, n_pages, max_slots,
         bt[s, :len(table)] = table
         lens[s] = n
     return dict(bt=bt, lens=lens)
+
+
+def cross_geometry(reqs, cross_ctx, chunk_size, page_size, n_pages,
+                   max_slots, empties=(0, 3)):
+    """The cross reads of the served run.  Chunks: the prefill engine's
+    chunks (its scheduler's order and partition), each segment reading
+    its request's read-only cross table with kv_len = cross_ctx and
+    q_offset 0; pad segments kv_len 0.  Slot batches: the decode slots,
+    each live slot's cross table with lens = cross_ctx, the last ``e``
+    slots free for each e in ``empties``.  Returns (chunk dicts, slot
+    dicts), in the form of prefill_geometry's and decode_geometry's."""
+    from repro_torch.core import chunking
+    from repro_torch.core.sched.prefill_scheduler import PrefillScheduler
+    from repro_torch.kvcache.paged import PagedAllocator
+    sched = PrefillScheduler()
+    for r in reqs:
+        sched.add(r)
+    order = sched.next_batch(sched.sched_batch)
+    alloc = PagedAllocator(n_pages=n_pages, page_size=page_size,
+                           cross_tokens=cross_ctx)
+    for r in order:
+        alloc.alloc(r.rid, r.prompt_len, materialize_all=True)
+    trash, width = n_pages, alloc.cross_pages_per_request
+    chunks = []
+    for chunk in chunking.partition([(r.rid, r.prompt_len) for r in order],
+                                    chunk_size):
+        segs = chunk.segments
+        ns = 1 << max(0, len(segs) - 1).bit_length()
+        sq = 1 << max(0, max(s.length for s in segs) - 1).bit_length()
+        g = dict(bt=np.full((ns, width), trash, np.int32),
+                 kv_len=np.zeros(ns, np.int32), q_off=np.zeros(ns, np.int32),
+                 sq=sq)
+        for i, s in enumerate(segs):
+            g["bt"][i] = alloc.cross_table(s.rid)
+            g["kv_len"][i] = cross_ctx
+        chunks.append(g)
+    slots = []
+    for e in empties:
+        bt = np.full((max_slots, width), trash, np.int32)
+        lens = np.zeros(max_slots, np.int32)
+        for s, r in enumerate(reqs[:max_slots - e]):
+            bt[s] = alloc.cross_table(r.rid)
+            lens[s] = cross_ctx
+        slots.append(dict(bt=bt, lens=lens))
+    return chunks, slots
 
 
 # ---------------------------------------------------------------------------
@@ -182,10 +275,10 @@ def decode_args(cfg, g, pools, dtype, device, gen):
             torch.from_numpy(g["lens"]).to(device))
 
 
-def prefill_work(q, k_pool, bt, kv_len, q_off):
+def prefill_work(q, k_pool, bt, kv_len, q_off, causal=True):
     """(bytes, FLOPs) the function needs on these inputs: q read and out
     written once, each live page's K/V read once, and QK^T + PV for each
-    (query head, key) the causal length mask admits."""
+    (query head, key) the length mask (and the causal one) admits."""
     es = q.element_size()
     segs, sq, h, hd = q.shape
     page, kvh = k_pool.shape[1], k_pool.shape[2]
@@ -195,7 +288,10 @@ def prefill_work(q, k_pool, bt, kv_len, q_off):
     nbytes = (2 * q.numel() * es + pages * page * kvh * 2 * hd * es
               + 4 * (bt.numel() + 2 * segs))
     q_pos = q0[:, None] + np.arange(sq)[None, :]
-    keys = np.minimum(kv[:, None], q_pos + 1).clip(min=0).sum()
+    if causal:
+        keys = np.minimum(kv[:, None], q_pos + 1).clip(min=0).sum()
+    else:
+        keys = (kv * sq).sum()
     return nbytes, int(keys) * h * 4 * hd
 
 
@@ -229,7 +325,7 @@ def dense_kv(k_pool, v_pool, bt, n_keys, rep):
             v.permute(0, 2, 1, 3).repeat_interleave(rep, 1).contiguous())
 
 
-def sdpa_prefill_call(q, k_pool, v_pool, bt, kv_len, q_off):
+def sdpa_prefill_call(q, k_pool, v_pool, bt, kv_len, q_off, causal=True):
     """One library call computing the prefill function on pre-gathered
     dense K/V with an explicit mask (a yardstick: the port never uses
     it)."""
@@ -240,8 +336,10 @@ def sdpa_prefill_call(q, k_pool, v_pool, bt, kv_len, q_off):
     k, v = dense_kv(k_pool, v_pool, bt, n_keys, h // k_pool.shape[2])
     k_pos = torch.arange(n_keys, device=q.device)
     q_pos = q_off.long()[:, None] + torch.arange(sq, device=q.device)
-    mask = ((k_pos[None, None, :] < kv_len.long()[:, None, None])
-            & (q_pos[:, :, None] >= k_pos[None, None, :]))[:, None]
+    mask = k_pos[None, None, :] < kv_len.long()[:, None, None]
+    if causal:
+        mask = mask & (q_pos[:, :, None] >= k_pos[None, None, :])
+    mask = mask.expand(segs, sq, n_keys)[:, None]
     qt = q.permute(0, 2, 1, 3).contiguous()
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
@@ -334,10 +432,11 @@ def cuda_ms(fn, reps: int = 10) -> float:
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
-def check_kernels(cfg, reqs, device):
-    """Phase 2: kernel vs plain version on the served shapes.  Returns
-    ({kernel: max abs error in bf16, the served dtype}, the prefill
-    chunk geometries, the decode slot geometries)."""
+def check_kernels(cfg, reqs, device, tag="2"):
+    """Phase 2 (2a): kernels 1 and 2 vs their plain versions on the
+    served shapes at ``cfg``'s attention widths.  Returns ({kernel: max
+    abs error in bf16, the served dtype}, the prefill chunk geometries,
+    the decode slot geometries)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_decode_attention import (
@@ -351,10 +450,9 @@ def check_kernels(cfg, reqs, device):
     gen = torch.Generator(device=device).manual_seed(SEED)
     pre, dec = "paged_prefill_attention", "paged_decode_attention"
     for dtype in (torch.float32, torch.bfloat16):
-        tol = TOL[str(dtype)]
         pools = random_pools(cfg, SERVE["n_pages"], SERVE["page_size"],
                              dtype, device, gen)
-        worst = {pre: 0.0, dec: 0.0}
+        worst = {}
         for window in (0, WINDOW):
             for g in chunks:
                 args = prefill_args(cfg, g, pools, dtype, device, gen)
@@ -362,8 +460,7 @@ def check_kernels(cfg, reqs, device):
                 exp = ref.paged_prefill_attention(*args, window=window)
                 torch.cuda.synchronize()
                 check(bool(torch.isfinite(got).all()), "prefill: non-finite")
-                worst[pre] = max(worst[pre], float(
-                    (got.float() - exp.float()).abs().max()))
+                compare(pre, got, exp, worst)
             for g in slot_cases:
                 args = decode_args(cfg, g, pools, dtype, device, gen)
                 got = paged_decode_attention(*args, window=window)
@@ -373,16 +470,15 @@ def check_kernels(cfg, reqs, device):
                 check(float(got[torch.from_numpy(empty).to(device)]
                             .float().abs().sum()) == 0.0,
                       "decode: an empty slot did not give zeros")
-                worst[dec] = max(worst[dec], float(
-                    (got.float() - exp.float()).abs().max()))
-        for name, err in worst.items():
+                compare(dec, got, exp, worst)
+        for name, (err, share) in worst.items():
             n = len(chunks) if name == pre else len(slot_cases)
-            print(f"phase 2: {name} vs plain, {dtype}, {n} served shapes x "
-                  f"window 0/{WINDOW}: max abs err {err:.3e} (tolerance "
-                  f"{tol:g})")
-            check(err <= tol, f"{name} disagrees with its plain version "
-                  f"in {dtype}: {err} > {tol}")
-    return worst, chunks, slot_cases
+            print(f"phase {tag}: {name} vs plain, {cfg.name}, {dtype}, "
+                  f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+                  f"{cfg.resolved_head_dim}, {n} served shapes x window "
+                  f"0/{WINDOW}: max abs err {err:.3e}, at most {share:.3f} "
+                  "of a case's limit (limit())")
+    return {k: v[0] for k, v in worst.items()}, chunks, slot_cases
 
 
 def check_mla_kernel(cfg, reqs, device):
@@ -426,6 +522,61 @@ def check_mla_kernel(cfg, reqs, device):
               f"plain version on {dtype} pools: {err} > {tol}")
         worst = err
     return worst, slot_cases
+
+
+def check_cross_kernels(cfg, reqs, device):
+    """Phase 2c: the cross reads vs their plain versions at ``cfg``'s
+    served shapes, f32 and bf16: the cross decode kernel on the decode
+    slot batch (full, and with 3 empty slots, which must give exactly 0)
+    and the prefill kernel with causal=False on every chunk's cross read
+    (kv_len = enc_ctx, q_offset 0, pad segments at kv_len 0).  Returns
+    ({kernel: max abs error in bf16}, the cross chunk geometries, the
+    cross slot geometries)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_cross_decode_attention import (
+        paged_cross_decode_attention)
+    from repro_torch.kernels.paged_prefill_attention import (
+        paged_prefill_attention)
+    chunks, slot_cases = cross_geometry(
+        reqs, cfg.cross_ctx, SERVE["chunk_size"], SERVE["page_size"],
+        CROSS_PAGES, SERVE["max_slots"])
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    pre, dec = ("paged_prefill_attention (causal=False)",
+                "paged_cross_decode_attention")
+    for dtype in (torch.float32, torch.bfloat16):
+        pools = random_pools(cfg, CROSS_PAGES, SERVE["page_size"], dtype,
+                             device, gen)
+        worst = {}
+        for g in chunks:
+            args = prefill_args(cfg, g, pools, dtype, device, gen)
+            got = paged_prefill_attention(*args, causal=False)
+            exp = ref.paged_prefill_attention(*args, causal=False)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), "cross prefill: "
+                  "non-finite")
+            pad = torch.from_numpy(g["kv_len"] == 0).to(device)
+            check(float(got[pad].float().abs().sum()) == 0.0,
+                  "cross prefill: a pad segment did not give zeros")
+            compare(pre, got, exp, worst)
+        for g in slot_cases:
+            args = decode_args(cfg, g, pools, dtype, device, gen)
+            got = paged_cross_decode_attention(*args)
+            exp = ref.paged_cross_decode_attention(*args)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), "cross decode: "
+                  "non-finite")
+            empty = torch.from_numpy(g["lens"] == 0).to(device)
+            check(float(got[empty].float().abs().sum()) == 0.0,
+                  "cross decode: an empty slot did not give zeros")
+            compare(dec, got, exp, worst)
+        for name, (err, share) in worst.items():
+            n = len(chunks) if name == pre else len(slot_cases)
+            print(f"phase 2c: {name} vs plain, {cfg.name}, {dtype}, "
+                  f"{cfg.cross_ctx} encoder tokens, {n} served shapes: max "
+                  f"abs err {err:.3e}, at most {share:.3f} of a case's "
+                  "limit (limit())")
+    return {k: v[0] for k, v in worst.items()}, chunks, slot_cases
 
 
 class TieRecorder:
@@ -485,20 +636,21 @@ class TieRecorder:
         MLP.moe_forward, M.prefill_paged, M.decode_logits_paged = self._saved
 
 
-def serve(cfg, params, reqs, device, time_it=False):
-    """Drive the port's engines over ``reqs``; returns (tokens by rid,
-    prefill engine, decode engine, prefill seconds, decode seconds)."""
+def serve(cfg, params, reqs, device, time_it=False, n_pages=None):
+    """Drive the port's engines over ``reqs`` (``n_pages`` a pool, the
+    SERVE value unless given); returns (tokens by rid, prefill engine,
+    decode engine, prefill seconds, decode seconds)."""
     import torch
     from repro_torch.core.decode_engine import DecodeEngine
     from repro_torch.core.prefill_engine import PrefillEngine
+    n_pages = n_pages or SERVE["n_pages"]
     pe = PrefillEngine("p0", cfg, params, device=device,
                        chunk_size=SERVE["chunk_size"],
-                       max_seq=SERVE["max_seq"], n_pages=SERVE["n_pages"],
+                       max_seq=SERVE["max_seq"], n_pages=n_pages,
                        page_size=SERVE["page_size"])
     de = DecodeEngine("d0", cfg, params, device=device,
                       max_slots=SERVE["max_slots"], max_seq=SERVE["max_seq"],
-                      n_pages=SERVE["n_pages"],
-                      page_size=SERVE["page_size"])
+                      n_pages=n_pages, page_size=SERVE["page_size"])
     for r in reqs:
         pe.submit(r)
     out, t, t_pre, t_dec = {}, 0.0, 0.0, 0.0
@@ -524,37 +676,28 @@ def serve(cfg, params, reqs, device, time_it=False):
     return out, pe, de, t_pre, t_dec
 
 
-def first_chunk_logits(cfg, params, g, reqs, device):
-    """Logits of the first served chunk through ``model.prefill_paged``
-    on ``device`` (a fresh pool; the chunk's segments start at 0)."""
-    import torch
-    from repro_torch.core.prefill_engine import make_page_pool
-    from repro_torch.models import model as M
-    pool, trash = make_page_pool(cfg, SERVE["n_pages"], SERVE["page_size"],
-                                 device)
-    ps, sq = SERVE["page_size"], g["sq"]
-    by_len = sorted(reqs, key=lambda r: r.prompt_len)
-    ns = g["bt"].shape[0]
-    toks = np.zeros((ns, sq), np.int32)
-    pg = np.full((ns, sq), trash, np.int32)
-    off = np.tile(np.arange(sq, dtype=np.int32) % ps, (ns, 1))
-    last = np.maximum(g["length"] - 1, 0).astype(np.int32)
-    for i in range(ns):
-        n, q0 = int(g["length"][i]), int(g["q_off"][i])
-        check(q0 == 0, "first chunk segment does not start its request")
-        if n:
-            toks[i, :n] = by_len[i].prompt_tokens[:n]
-            pos = np.arange(n)
-            pg[i, :n] = g["bt"][i][pos // ps]
-            off[i, :n] = pos % ps
+class FirstLogits:
+    """Records, while active, the logits of the first
+    ``model.prefill_paged`` call (rows of segments with tokens), on the
+    CPU."""
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    nxt, logits = M.prefill_paged(params, cfg, t(toks), t(g["q_off"]),
-                                  t(g["kv_len"]), t(last), t(g["bt"]),
-                                  t(pg), t(off), pool.k, pool.v)
-    n_real = int((g["length"] > 0).sum())
-    return logits[:n_real].float().cpu()
+    def __enter__(self):
+        from repro_torch.models import model as M
+        self._saved = M.prefill_paged
+        self.logits = None
+
+        def prefill(params, cfg, tokens, q_offset, kv_len, *a, **kw):
+            nxt, logits = self._saved(params, cfg, tokens, q_offset, kv_len,
+                                      *a, **kw)
+            if self.logits is None:
+                self.logits = logits[kv_len > 0].float().cpu()
+            return nxt, logits
+        M.prefill_paged = prefill
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as M
+        M.prefill_paged = self._saved
 
 
 def to_device(tree, device):
@@ -577,21 +720,30 @@ def count_params(tree) -> int:
 def zero_launches(kernels) -> None:
     for fn in kernels.values():
         fn.launches = 0
+        if hasattr(fn, "noncausal_launches"):
+            fn.noncausal_launches = 0
 
 
-def serve_phase(tag, cfg, params, device, kernels, card):
-    """Phase 3/3b: warm up, then serve the N_REQUESTS requests (tokens
-    drawn in ``cfg``'s vocabulary) with every launch counter set to 0
-    just before and read just after.  Checks the run and prints its
-    numbers; returns (launches by kernel, prefill engine, decode
-    engine)."""
-    reqs = make_requests(cfg.vocab_size)
+def serve_phase(tag, cfg, params, device, kernels, card,
+                prompts=PROMPT_RANGE, enc=None, n_pages=None):
+    """Phase 3/3b/3c/3d: warm up, then serve the N_REQUESTS requests
+    (tokens drawn in ``cfg``'s vocabulary, prompt lengths in
+    ``prompts``, frontend embeddings ``enc``) with every launch counter
+    set to 0 just before and read just after.  Checks the run and prints
+    its numbers; returns (launches by kernel, prefill engine, decode
+    engine).  Kernel 1's non-causal launches are the entry
+    ``paged_prefill_attention (causal=False)``."""
+    reqs = make_requests(cfg.vocab_size, lo=prompts[0], hi=prompts[1],
+                         enc=enc)
     warm = make_requests(cfg.vocab_size, n=1, lo=64, hi=64, new=2)
-    serve(cfg, params, warm, device)            # warm-up: libraries, cuBLAS
+    # warm-up: libraries, cuBLAS
+    serve(cfg, params, warm, device, n_pages=n_pages)
     zero_launches(kernels)
     out, pe, de, t_pre, t_dec = serve(cfg, params, reqs, device,
-                                      time_it=True)
+                                      time_it=True, n_pages=n_pages)
     launches = {name: fn.launches for name, fn in kernels.items()}
+    launches["paged_prefill_attention (causal=False)"] = kernels[
+        "paged_prefill_attention"].noncausal_launches
     check(len(out) == len(reqs), f"{len(out)} of {len(reqs)} finished")
     for rid, toks in out.items():
         check(len(toks) == NEW_TOKENS, f"{rid}: {len(toks)} tokens")
@@ -628,19 +780,15 @@ def deepseek_vs_cpu(device):
     reqs = make_requests(cfg.vocab_size, **DS_CHECK)
     runs = []
     for dev, params in ((device, gpu_params), ("cpu", cpu_params)):
-        with TieRecorder() as rec:
+        with TieRecorder() as rec, FirstLogits() as first:
             out, pe, _, _, _ = serve(cfg, params, make_requests(
                 cfg.vocab_size, **DS_CHECK), dev)
         check(pe.fused_calls == 1, "phase 4b: the prompts took more than "
               "one chunk")
-        runs.append((out, rec.calls))
-    g = prefill_geometry(reqs, SERVE["chunk_size"], SERVE["page_size"],
-                         SERVE["max_seq"], SERVE["n_pages"])[0]
-    lg_gpu = first_chunk_logits(cfg, gpu_params, g, reqs, device)
-    lg_cpu = first_chunk_logits(cfg, cpu_params, g, reqs, "cpu")
+        runs.append((out, rec.calls, first.logits))
+    (out_gpu, calls_gpu, lg_gpu), (out_cpu, calls_cpu, lg_cpu) = runs
     lerr = float((lg_gpu - lg_cpu).abs().max())
     check(lerr <= LOGIT_TOL, f"phase 4b: first-chunk logits differ by {lerr}")
-    (out_gpu, calls_gpu), (out_cpu, calls_cpu) = runs
     check(set(out_gpu) == set(out_cpu) == {r.rid for r in reqs},
           "phase 4b: not every request finished")
     # call j of a run emitted token j of every request (one prefill chunk,
@@ -666,6 +814,105 @@ def deepseek_vs_cpu(device):
     else:
         print(f"phase 4b: {len(out_gpu)} token streams identical")
     print(f"phase 4b: DeepSeek-V2 2-layer f32 device vs CPU: first-chunk "
+          f"logits max abs err {lerr:.3e} (tolerance {LOGIT_TOL:g}), "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def cross_serve_phase(tag, cfg, device, kernels, card, prompts):
+    """Phase 3c/3d: ``cfg`` in bf16 with random weights from SEED and
+    every request's stub frontend embeddings, served through the
+    engines.  Besides serve_phase's checks: kernel 4 launched
+    n_cross_layers x iterations times, kernel 1 non-causally
+    n_cross_layers x fused calls times (and causally n_layers x fused
+    calls), the encoder ran on some chunks and not all, and the wire
+    carried the self pages plus each request's one-shot cross pages.
+    Returns the launches by kernel."""
+    import torch
+    from repro_torch.core.backend import backend_for
+    from repro_torch.core.kv_transfer import kv_page_bytes
+    from repro_torch.models import model as M
+    from repro_torch.models.frontends import fake_frontend
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(SEED), device)
+    enc = fake_frontend(cfg, N_REQUESTS, torch.Generator(device=device)
+                        .manual_seed(SEED + 1), device)
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    print(f"phase {tag}: {cfg.name}, {cfg.n_layers} layers "
+          f"({cfg.n_cross_layers} with cross-attention), full width, "
+          f"{n_params / 1e9:.2f} G parameters in bf16, {cfg.cross_ctx} "
+          f"encoder tokens a request, drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches, pe, de = serve_phase(tag, cfg, params, device, kernels, card,
+                                   prompts=prompts, enc=enc,
+                                   n_pages=CROSS_PAGES)
+    nc, fused, iters = cfg.n_cross_layers, pe.fused_calls, de.iterations
+    check(launches["paged_cross_decode_attention"] == nc * iters > 0,
+          f"cross decode launches {launches} != {nc} x {iters} iterations")
+    check(launches["paged_prefill_attention (causal=False)"] == nc * fused
+          and launches["paged_prefill_attention"]
+          == (cfg.n_layers + nc) * fused, f"prefill launches {launches}: "
+          f"expected {nc} non-causal and {cfg.n_layers} causal x {fused} "
+          "fused calls")
+    check(launches["paged_decode_attention"] == cfg.n_layers * iters,
+          f"decode launches {launches} != {cfg.n_layers} x {iters}")
+    check(0 < pe.encoder_calls <= fused, f"{pe.encoder_calls} encoder "
+          f"calls in {fused} fused calls")
+    reqs = make_requests(cfg.vocab_size, lo=prompts[0], hi=prompts[1])
+    ps = SERVE["page_size"]
+    spec = backend_for(cfg)
+    cross_wire = (kv_page_bytes(cfg, 1, ps, enc_len=cfg.cross_ctx)
+                  - kv_page_bytes(cfg, 1, ps))
+    self_wire = sum(kv_page_bytes(cfg, r.prompt_len, ps) for r in reqs)
+    check(pe.network.bytes_sent == self_wire + len(reqs) * cross_wire,
+          f"{pe.network.bytes_sent} wire bytes, expected {self_wire} + "
+          f"{len(reqs)} x {cross_wire}")
+    gathered = (cfg.n_layers * -(-cfg.cross_ctx // ps) * ps
+                * spec.page_token_bytes)
+    print(f"phase {tag}: {pe.encoder_calls} of {fused} fused calls ran the "
+          f"encoder work; cross wire bytes a request {cross_wire} "
+          f"({nc} cross layers), cross pages gathered on the device a "
+          f"request {gathered} (all {cfg.n_layers} pool layers)")
+    del params, pe, de
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cross_vs_cpu(cfg, device):
+    """Phase 4c: ``cfg`` in f32, weights drawn on the card and copied to
+    the CPU; the same CROSS_CHECK requests with the same frontend
+    embeddings served on both; identical token streams and first-chunk
+    logits within LOGIT_TOL."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.frontends import fake_frontend
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    gpu_params = M.init_params(
+        cfg, torch.Generator(device=device).manual_seed(SEED + 6), device)
+    cpu_params = to_device(gpu_params, "cpu")
+    enc = fake_frontend(cfg, CROSS_CHECK["n"], torch.Generator(
+        device=device).manual_seed(SEED + 7), device).cpu()
+    runs = []
+    for dev, params in ((device, gpu_params), ("cpu", cpu_params)):
+        with FirstLogits() as rec:
+            out, pe, _, _, _ = serve(cfg, params, make_requests(
+                cfg.vocab_size, enc=enc, **CROSS_CHECK), dev, n_pages=512)
+        check(pe.fused_calls == 1 and pe.encoder_calls == 1,
+              f"phase 4c: {pe.fused_calls} fused calls, "
+              f"{pe.encoder_calls} with encoder work, expected 1 and 1")
+        runs.append((out, rec.logits))
+    (out_gpu, lg_gpu), (out_cpu, lg_cpu) = runs
+    lerr = float((lg_gpu - lg_cpu).abs().max())
+    check(len(out_gpu) == CROSS_CHECK["n"], "phase 4c: not every request "
+          "finished")
+    check(out_gpu == out_cpu, f"phase 4c: {cfg.name}: device and CPU runs "
+          "emit different tokens")
+    check(lerr <= LOGIT_TOL, f"phase 4c: {cfg.name}: first-chunk logits "
+          f"differ by {lerr}")
+    print(f"phase 4c: {cfg.name} ({cfg.n_layers} layers) f32 device vs "
+          f"CPU: {len(out_gpu)} token streams identical, first-chunk "
           f"logits max abs err {lerr:.3e} (tolerance {LOGIT_TOL:g}), "
           f"{time.perf_counter() - t0:.1f} s")
 
@@ -706,6 +953,8 @@ def main() -> int:
     from repro_torch.core.backend import backend_for
     from repro_torch.kernels import build
     from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_cross_decode_attention import (
+        paged_cross_decode_attention)
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention)
     from repro_torch.kernels.paged_mla_decode_attention import (
@@ -726,7 +975,8 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)")
     kernels = {"paged_prefill_attention": paged_prefill_attention,
                "paged_decode_attention": paged_decode_attention,
-               "paged_mla_decode_attention": paged_mla_decode_attention}
+               "paged_mla_decode_attention": paged_mla_decode_attention,
+               "paged_cross_decode_attention": paged_cross_decode_attention}
     check(tuple(kernels) == build.NAMES, f"kernels {build.NAMES}")
 
     # -- phase 1: build ------------------------------------------------
@@ -750,6 +1000,24 @@ def main() -> int:
     errs, chunks, slot_cases = check_kernels(cfg, reqs, device)
     errs["paged_mla_decode_attention"], mla_slots = check_mla_kernel(
         ds_cfg, reqs, device)
+    vlm_cfg, wh_cfg = get_config(VLM_ARCH), get_config(WHISPER_ARCH)
+    wh_reqs = make_requests(wh_cfg.vocab_size, lo=WHISPER_PROMPTS[0],
+                            hi=WHISPER_PROMPTS[1])
+    # 2a: kernels 1 and 2 at the cross models' self-attention widths and
+    # served shapes: Llama-3.2-Vision (hd 128, rep 4), Whisper (hd 64,
+    # rep 1, prompts of 32-400 tokens)
+    for c, rq in ((vlm_cfg, reqs), (wh_cfg, wh_reqs)):
+        for name, err in check_kernels(c, rq, device, tag="2a")[0].items():
+            errs[name] = max(errs[name], err)
+    # 2c: the cross reads at both cross models' served shapes
+    cross_geo = {}
+    errs["paged_cross_decode_attention"] = 0.0
+    for c, rq in ((vlm_cfg, reqs), (wh_cfg, wh_reqs)):
+        worst, cchunks, cslots = check_cross_kernels(c, rq, device)
+        cross_geo[c.name] = (cchunks, cslots)
+        for name, err in worst.items():
+            key = name.split(" ")[0]
+            errs[key] = max(errs[key], err)
 
     # -- phase 3: serve full-width qwen2-0.5b in bf16 --------------------
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -791,19 +1059,25 @@ def main() -> int:
     del params, pe, de
     torch.cuda.empty_cache()
 
+    # -- phase 3c: serve Llama-3.2-Vision-11B, full width and depth, bf16 -
+    vlm_launches = cross_serve_phase("3c", vlm_cfg, device, kernels, card,
+                                     PROMPT_RANGE)
+    # -- phase 3d: serve Whisper-tiny whole, bf16 -------------------------
+    cross_serve_phase("3d", wh_cfg, device, kernels, card, WHISPER_PROMPTS)
+
     # -- phase 4: device vs CPU, 2 layers, f32 ---------------------------
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     cpu_params = M.init_params(cfg2, torch.Generator().manual_seed(SEED + 1),
                                "cpu")
     gpu_params = to_device(cpu_params, device)
     t0 = time.perf_counter()
-    out_gpu = serve(cfg2, gpu_params, make_requests(cfg.vocab_size),
-                    device)[0]
-    out_cpu = serve(cfg2, cpu_params, make_requests(cfg.vocab_size),
-                    "cpu")[0]
+    runs = []
+    for dev, params in ((device, gpu_params), ("cpu", cpu_params)):
+        with FirstLogits() as first:
+            out = serve(cfg2, params, make_requests(cfg.vocab_size), dev)[0]
+        runs.append((out, first.logits))
+    (out_gpu, lg_gpu), (out_cpu, lg_cpu) = runs
     check(out_gpu == out_cpu, "device and CPU runs emit different tokens")
-    lg_gpu = first_chunk_logits(cfg2, gpu_params, chunks[0], reqs, device)
-    lg_cpu = first_chunk_logits(cfg2, cpu_params, chunks[0], reqs, "cpu")
     lerr = float((lg_gpu - lg_cpu).abs().max())
     check(lerr <= LOGIT_TOL, f"first-chunk logits differ by {lerr}")
     print(f"phase 4: 2-layer f32 device vs CPU: {len(out_gpu)} token "
@@ -813,6 +1087,12 @@ def main() -> int:
 
     # -- phase 4b: DeepSeek-V2 device vs CPU, 2 layers, f32 --------------
     deepseek_vs_cpu(device)
+    torch.cuda.empty_cache()
+
+    # -- phase 4c: the cross models device vs CPU, f32 --------------------
+    cross_vs_cpu(wh_cfg, device)
+    cross_vs_cpu(dataclasses.replace(vlm_cfg, n_layers=VLM_CHECK_LAYERS),
+                 device)
     torch.cuda.empty_cache()
 
     # -- phase 5: kernel times at the served shapes (bf16) ---------------
@@ -845,8 +1125,49 @@ def main() -> int:
             lambda *a: ref.paged_mla_decode_attention(*a, scale=scale),
             lambda *a: sdpa_mla_call(*a, scale), lambda a: mla_work(*a),
             dtype, card)}
+    vlm_pools = random_pools(vlm_cfg, CROSS_PAGES, SERVE["page_size"],
+                             dtype, device, gen)
+    wh_pools = random_pools(wh_cfg, CROSS_PAGES, SERVE["page_size"], dtype,
+                            device, gen)
+    (v_chunks, v_slots), (_, w_slots) = (cross_geo[vlm_cfg.name],
+                                         cross_geo[wh_cfg.name])
+    dec_work = lambda a: decode_work(a[0], a[1], *a[3:])  # noqa: E731
+    timing["paged_cross_decode_attention"] = time_kernel(
+        f"paged_cross_decode_attention, {vlm_cfg.name}",
+        [decode_args(vlm_cfg, g, vlm_pools, dtype, device, gen)
+         for g in v_slots[:1]],
+        paged_cross_decode_attention, ref.paged_cross_decode_attention,
+        sdpa_decode_call, dec_work, dtype, card)
+    time_kernel(f"paged_cross_decode_attention, {wh_cfg.name}",
+                [decode_args(wh_cfg, g, wh_pools, dtype, device, gen)
+                 for g in w_slots[:1]],
+                paged_cross_decode_attention,
+                ref.paged_cross_decode_attention, sdpa_decode_call,
+                dec_work, dtype, card)
+    time_kernel(
+        f"paged_prefill_attention causal=False, {vlm_cfg.name} cross read",
+        [prefill_args(vlm_cfg, g, vlm_pools, dtype, device, gen)
+         for g in v_chunks],
+        lambda *a: paged_prefill_attention(*a, causal=False),
+        lambda *a: ref.paged_prefill_attention(*a, causal=False),
+        lambda *a: sdpa_prefill_call(*a, causal=False),
+        lambda a: prefill_work(a[0], a[1], *a[3:], causal=False),
+        dtype, card)
+    time_kernel(f"paged_prefill_attention, {vlm_cfg.name} self-attention",
+                [prefill_args(vlm_cfg, g, vlm_pools, dtype, device, gen)
+                 for g in chunks],
+                paged_prefill_attention, ref.paged_prefill_attention,
+                sdpa_prefill_call,
+                lambda a: prefill_work(a[0], a[1], *a[3:]), dtype, card)
+    time_kernel(f"paged_decode_attention, {vlm_cfg.name} self-attention",
+                [decode_args(vlm_cfg, g, vlm_pools, dtype, device, gen)
+                 for g in slot_cases[:1]],
+                paged_decode_attention, ref.paged_decode_attention,
+                sdpa_decode_call, dec_work, dtype, card)
     launches["paged_mla_decode_attention"] = ds_launches[
         "paged_mla_decode_attention"]
+    launches["paged_cross_decode_attention"] = vlm_launches[
+        "paged_cross_decode_attention"]
     rows = []
     for name in build.NAMES:
         tm = timing[name]

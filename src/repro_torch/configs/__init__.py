@@ -3,8 +3,9 @@
 ``get_config(arch_id)`` returns the full-size ModelConfig;
 ``get_smoke_config(arch_id)`` the reduced same-family variant used by the
 CPU tests.  Only the architectures whose paths are ported are listed:
-qwen2-0.5b (paged GQA) and DeepSeek-V2 (MLA latent pages and routed
-MoE).  The others come with their slices.
+qwen2-0.5b (paged GQA), DeepSeek-V2 (MLA latent pages and routed MoE),
+and Llama-3.2-Vision-11B and Whisper-tiny (read-only cross-attention
+pages).  The others come with their slices.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import importlib
 
 from repro_torch.models.config import ModelConfig, reduced
 
-ARCH_IDS = ("qwen2_0_5b", "deepseek_v2_236b")
+ARCH_IDS = ("qwen2_0_5b", "deepseek_v2_236b", "llama_3_2_vision_11b",
+            "whisper_tiny")
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 

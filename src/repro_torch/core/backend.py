@@ -5,9 +5,12 @@ reference.  This slice ports the ``paged`` backend with two layouts:
 ``gqa`` (pool pages hold per-head K/V, 2 * n_kv_heads * head_dim
 scalars per token per layer) and ``latent`` for MLA (the compressed
 latent plus the decoupled RoPE key, kv_lora_rank + qk_rope_head_dim
-scalars per token per layer: 576 for DeepSeek-V2).  A config or request
-that needs another one — the dense backend (recurrent/hybrid archs),
-sliding-window or cross-attention paging — raises
+scalars per token per layer: 576 for DeepSeek-V2).  VLM and
+encoder-decoder archs get ``cross="pages"``: the encoder K/V of every
+cross layer lives in read-only pages of the same GQA pool, addressed
+by a second per-request block table, prefilled once and freed with the
+request.  A config or request that needs another backend — the dense
+backend (recurrent/hybrid archs) or sliding-window paging — raises
 ``NotImplementedError`` naming the slice that brings it; nothing falls
 back quietly.
 """
@@ -27,8 +30,8 @@ class BackendSpec:
     window: int             # sliding window in tokens (0 = unlimited)
     token_width: int        # pool scalars per token per layer
     page_token_bytes: int   # wire/pool bytes per token per layer
-    cross: str = "none"
-    cross_ctx: int = 0
+    cross: str = "none"     # "none" | "pages"
+    cross_ctx: int = 0      # encoder tokens each cross layer attends
     n_cross_layers: int = 0
 
     @property
@@ -38,17 +41,13 @@ class BackendSpec:
 
 def backend_for(cfg: ModelConfig, requested: str = "auto") -> BackendSpec:
     """Resolve the execution backend for ``cfg`` (paged, GQA or MLA
-    latent layout)."""
+    latent layout, cross pages for cross-attention archs)."""
     if requested not in ("auto", "paged", "dense"):
         raise ValueError(f"unknown backend {requested!r}")
     if requested == "dense":
         raise NotImplementedError(
             "dense backend: comes with the dense and recurrent backends "
             "slice")
-    if cfg.n_cross_layers or cfg.encoder is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention pages come with the "
-            "cross-attention slice")
     if cfg.sliding_window:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window paging comes with the "
@@ -64,6 +63,9 @@ def backend_for(cfg: ModelConfig, requested: str = "auto") -> BackendSpec:
     else:
         layout = "gqa"
         width = 2 * cfg.n_kv_heads * cfg.resolved_head_dim
+    cross = "pages" if cfg.n_cross_layers else "none"
     return BackendSpec(backend="paged", layout=layout, window=0,
                        token_width=width,
-                       page_token_bytes=width * dtype_bytes)
+                       page_token_bytes=width * dtype_bytes, cross=cross,
+                       cross_ctx=cfg.cross_ctx if cross != "none" else 0,
+                       n_cross_layers=cfg.n_cross_layers)

@@ -10,13 +10,17 @@ and a block-table row, every iteration runs the full slot batch through
 the CUDA paged-decode kernel (the paged MLA decode kernel over latent
 pages for MLA configs), block tables grow page-at-a-time via the
 allocator's ``append_token``, and argmax stays on the device (one int
-per slot crosses to the host).
+per slot crosses to the host).  Cross-attention archs (VLM / enc-dec)
+install the shipped encoder pages once at admission, in the same
+scatter as the self pages; every iteration reads them through a second
+block table (the cross decode kernel; nothing is scattered into them)
+and they are freed exactly once when the request finishes.
 
 The model runs on ``device`` ("cuda" unless the caller asks for "cpu");
 ``params`` must live there.  Decoding is greedy: a request whose
 ``SamplingParams`` asks for sampling raises ``NotImplementedError``
-(on-device sampling is a later slice), as do the dense backend, cross
-pages and the prefix cache.
+(on-device sampling is a later slice), as do the dense backend and the
+prefix cache.
 """
 from __future__ import annotations
 
@@ -63,7 +67,9 @@ class DecodeEngine:
         self.max_seq = max_seq
         self.spec = backend_for(cfg, backend)
         self.backend = self.spec.backend
-        self.alloc = PagedAllocator(n_pages=n_pages, page_size=page_size)
+        self.enc_ctx = self.spec.cross_ctx
+        self.alloc = PagedAllocator(n_pages=n_pages, page_size=page_size,
+                                    cross_tokens=self.enc_ctx)
         self.scheduler = DecodeScheduler(self.alloc, policy=policy,
                                          max_batch=max_slots)
         self.page_size = page_size
@@ -77,6 +83,7 @@ class DecodeEngine:
         self.pool, self._trash = make_page_pool(cfg, n_pages, page_size,
                                                 self.device)
         self._bt_width = self.alloc.pages_for(max_seq)
+        self._cross_bt_width = self.alloc.cross_pages_per_request
 
     # ------------------------------------------------------------------
     def receive(self, pk: PrefilledKV,
@@ -128,6 +135,18 @@ class DecodeEngine:
             pages.extend(live)
             payload_k.append(pk.pages_k)
             payload_v.append(pk.pages_v)
+            if self.spec.cross == "pages":
+                # the one-shot cross payload lands in the cross pages the
+                # admission alloc drew from the same pool
+                ctab = self.alloc.cross_table(req.rid)
+                if pk.cross_k is None or pk.cross_k.shape[1] != len(ctab):
+                    raise ValueError(
+                        f"{req.rid}: a cross-attention arch needs the "
+                        "encoder pages shipped beside the self KV")
+                pages.extend(ctab)
+                payload_k.append(pk.cross_k)
+                payload_v.append(pk.cross_v)
+                self.alloc.commit_cross(req.rid)
             self.slots[slot] = SlotState(req=req,
                                          last_token=pk.first_token,
                                          tokens=[pk.first_token])
@@ -204,6 +223,11 @@ class DecodeEngine:
         offs = np.zeros((ms,), np.int32)
         bt = np.full((ms, self._bt_width), trash, np.int32)
         lens = np.zeros((ms,), np.int32)
+        cross = self.spec.cross == "pages"
+        if cross:
+            # empty slots keep enc_len 0 and a row on the scratch page
+            cbt = np.full((ms, self._cross_bt_width), trash, np.int32)
+            clens = np.zeros((ms,), np.int32)
         for s, st in self.slots.items():
             p = st.req.prompt_len + st.req.generated
             # account the token being appended THIS iteration; the
@@ -215,6 +239,10 @@ class DecodeEngine:
             table = self.alloc.table_padded(st.req.rid, trash)
             bt[s, :len(table)] = table
             lens[s] = p + 1
+            if cross:
+                ctab = self.alloc.cross_table(st.req.rid)
+                cbt[s, :len(ctab)] = ctab
+                clens[s] = self.enc_ctx
         # copy-on-write: step_token may have redirected a slot's tail
         # page off a shared page — replay the page copies on the device
         # pool BEFORE the kernels scatter this iteration's tokens
@@ -223,11 +251,15 @@ class DecodeEngine:
             src, dst = zip(*cows)
             self.pool.copy_pages(list(src), list(dst))
         dev = self.device
+        cross_args = {}
+        if cross:
+            cross_args = dict(cross_bt=to_device(cbt, dev),
+                              cross_len=to_device(clens, dev))
         nxt = M.decode_step_paged(
             self.params, self.cfg, to_device(toks, dev),
             to_device(pos, dev), to_device(pages, dev),
             to_device(offs, dev), to_device(bt, dev), to_device(lens, dev),
-            self.pool.k, self.pool.v)
+            self.pool.k, self.pool.v, **cross_args)
         return nxt.cpu().numpy()
 
     # ------------------------------------------------------------------

@@ -5,13 +5,17 @@ The engine owns a device ``PagePool``; one ``step`` executes the WHOLE
 fixed-size chunk as a single fused ``model.prefill_paged`` call
 (segments of multiple requests packed on the batch dim), writing K/V
 straight into pages.  Finished requests ship ``(live page contents)``
-through ``PrefilledKV`` and free their pages.
+through ``PrefilledKV`` and free their pages.  Cross-attention archs
+(VLM / enc-dec) also hold READ-ONLY cross pages per request: the encoder
+K/V is scattered once, by the chunk holding the request's first
+segment; every chunk attends it through a second block table, and the
+finished request ships the cross pages beside the self KV.
 
 Host-side bookkeeping is the reference's: pad to powers of two, tables
 built with numpy, first tokens copied to the host.  The model runs on
 ``device`` ("cuda" unless the caller asks for "cpu"); ``params`` must
-live there.  The dense backend, cross-attention pages and the prefix
-cache come with their slices.
+live there.  The dense backend and the prefix cache (with its cross-page
+dedupe) come with their slices.
 """
 from __future__ import annotations
 
@@ -40,7 +44,10 @@ class PrefilledKV:
     page, kvh, hd) K/V pages or, for MLA, of (L, n_pages, page, lora)
     latent and (L, n_pages, page, rope) RoPE-key pages, plus ``kv_len``
     valid tokens.  The receiver installs them into its own pool and
-    builds a block-table row."""
+    builds a block-table row.  Cross-attention archs also ship
+    ``cross_k``/``cross_v``, copies of the read-only encoder pages (L,
+    cross_pages, page, kvh, hd), covering ``enc_len`` encoder tokens:
+    a one-shot payload, amortized over the whole decode."""
     req: Request
     first_token: int             # argmax token from prefill (the 'first token')
     transfer_delay_s: float      # emulated network wait
@@ -48,6 +55,13 @@ class PrefilledKV:
     pages_k: object = None
     pages_v: object = None
     kv_len: int = 0
+    cross_k: object = None       # cross-attention archs only
+    cross_v: object = None
+    enc_len: int = 0
+    # whether the cross pages were aliased from the prefix cache (the
+    # encoder ran 0 times for this request); False until the port has
+    # the cache
+    cross_cached: bool = False
 
 
 def _pow2(n: int) -> int:
@@ -112,10 +126,14 @@ class PrefillEngine:
         self._reqs: Dict[str, Request] = {}
         self.chunk_steps = 0         # steps that actually ran a chunk
         self.fused_calls = 0         # one per chunk on the paged backend
-        self.alloc = PagedAllocator(n_pages=n_pages, page_size=page_size)
+        self.encoder_calls = 0       # chunks that ran encoder + scatter
+        self.enc_ctx = self.spec.cross_ctx
+        self.alloc = PagedAllocator(n_pages=n_pages, page_size=page_size,
+                                    cross_tokens=self.enc_ctx)
         self.pool, self._trash = make_page_pool(cfg, n_pages, page_size,
                                                 self.device)
         self._bt_width = self.alloc.pages_for(max_seq)
+        self._cross_bt_width = self.alloc.cross_pages_per_request
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -198,7 +216,10 @@ class PrefillEngine:
     def _step_paged(self, chunk: chunking.Chunk, now: float
                     ) -> List[PrefilledKV]:
         """Pack the chunk's segments flat and issue exactly ONE fused
-        model call for the whole chunk."""
+        model call for the whole chunk.  For cross-attention archs the
+        call carries the encoder work (encoder stack, one-shot cross-KV
+        scatter) only when some segment is its request's first; else it
+        reads the cross pages only."""
         segs = chunk.segments
         n = len(segs)
         ns = _pow2(n)                          # stable batch dim
@@ -211,6 +232,19 @@ class PrefillEngine:
         bt = np.full((ns, self._bt_width), trash, np.int32)
         pg = np.full((ns, sq), trash, np.int32)
         off = np.tile(np.arange(sq, dtype=np.int32) % ps, (ns, 1))
+        dev = self.device
+        cross = self.spec.cross == "pages"
+        scattered: List[str] = []   # rids whose cross pages land this call
+        if cross:
+            ec = self.enc_ctx
+            # f32 whatever the model's dtype, as in the reference: the
+            # encoder and the cross K/V projections run in f32
+            enc = torch.zeros((ns, ec, self.cfg.d_model),
+                              dtype=torch.float32, device=dev)
+            cbt = np.full((ns, self._cross_bt_width), trash, np.int32)
+            clen = np.zeros((ns,), np.int32)
+            cpg = np.full((ns, ec), trash, np.int32)
+            coff = np.tile(np.arange(ec, dtype=np.int32) % ps, (ns, 1))
         for i, seg in enumerate(segs):
             req = self._reqs[seg.rid]
             if req.t_prefill_start < 0:
@@ -227,13 +261,40 @@ class PrefillEngine:
             pos = seg.req_start + np.arange(seg.length)
             pg[i, :seg.length] = table[pos // ps]
             off[i, :seg.length] = pos % ps
-        dev = self.device
+            if cross:
+                ctab = np.asarray(self.alloc.cross_table(seg.rid),
+                                  np.int32)
+                cbt[i, :len(ctab)] = ctab
+                clen[i] = self.enc_ctx
+                if (seg.req_start == self.alloc.cached_prefix_tokens(
+                        seg.rid)
+                        and not self.alloc.cross_cached(seg.rid)):
+                    # one-shot cross-KV prefill: only a request's FIRST
+                    # segment scatters the encoder K/V into its cross
+                    # pages; later chunks only read them (cpg stays at
+                    # the scratch page: their write lands there)
+                    if req.enc_embeds is not None:
+                        enc[i].copy_(torch.as_tensor(req.enc_embeds))
+                    cpg[i] = ctab[np.arange(self.enc_ctx) // ps]
+                    scattered.append(seg.rid)
+        cross_args = {}
+        if cross:
+            cross_args = dict(cross_bt=to_device(cbt, dev),
+                              cross_len=to_device(clen, dev))
+            if scattered:
+                cross_args.update(enc_embeds=enc,
+                                  cross_pg=to_device(cpg, dev),
+                                  cross_off=to_device(coff, dev))
+                self.encoder_calls += 1
         next_tok, _ = M.prefill_paged(
             self.params, self.cfg, to_device(toks, dev),
             to_device(qoff, dev), to_device(kvlen, dev),
             to_device(last, dev), to_device(bt, dev), to_device(pg, dev),
-            to_device(off, dev), self.pool.k, self.pool.v)
+            to_device(off, dev), self.pool.k, self.pool.v, **cross_args)
         self.fused_calls += 1
+        for rid in scattered:
+            # a no-op until the prefix cache publishes cross pages
+            self.alloc.commit_cross(rid)
         next_tok = next_tok.cpu().numpy()
         finished: List[PrefilledKV] = []
         for i, seg in enumerate(segs):
@@ -247,19 +308,32 @@ class PrefillEngine:
     def _finish_paged(self, req: Request, first_tok: int, now: float
                       ) -> PrefilledKV:
         n_chunks = self._note_finished(req, now)
+        enc_len = self.enc_ctx
+        cross_cached = self.alloc.cross_cached(req.rid)
         delay = self.network.send_kv(self.cfg, req.prompt_len,
                                      n_chunks=n_chunks,
-                                     page_size=self.page_size)
+                                     page_size=self.page_size,
+                                     enc_len=enc_len,
+                                     cross_cached=cross_cached)
         req.phase = Phase.TRANSFER
         # gather() returns a COPY of the live pages, which are freed right
         # below: the payload survives the next chunk scattering into them
         pages_k, pages_v = self.pool.gather(self.alloc.live_pages(req.rid))
+        cross_k = cross_v = None
+        if enc_len:
+            # plus the one-shot read-only cross pages, across every layer
+            # of the pool as in the reference (only the cross layers hold
+            # encoder K/V; the wire bytes count those alone)
+            cross_k, cross_v = self.pool.gather(
+                self.alloc.cross_table(req.rid))
         self.alloc.free(req.rid)
         self._reqs.pop(req.rid)
         return PrefilledKV(req=req, first_token=first_tok,
                            transfer_delay_s=delay, n_chunks=n_chunks,
                            pages_k=pages_k, pages_v=pages_v,
-                           kv_len=req.prompt_len)
+                           kv_len=req.prompt_len, cross_k=cross_k,
+                           cross_v=cross_v, enc_len=enc_len,
+                           cross_cached=cross_cached)
 
     def _note_finished(self, req: Request, now: float) -> int:
         req.t_first_token = now     # chunked prefill emits the first token

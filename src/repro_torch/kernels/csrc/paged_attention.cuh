@@ -1,5 +1,7 @@
-// Shared device body of the two paged-attention kernels
-// (paged_prefill_attention.cu, paged_decode_attention.cu).
+// Shared device body of the three GQA paged-attention kernels
+// (paged_prefill_attention.cu, paged_decode_attention.cu,
+// paged_cross_decode_attention.cu) and the split combine of the two
+// decode ones.
 //
 // One thread block owns R = n_q * rep query rows that all read the same
 // KV head g: n_q consecutive query positions of one segment (decode:
@@ -342,6 +344,37 @@ __device__ void attend(const T* __restrict__ q_base,
     const float o =
         m_s[row] == NEG_INF ? 0.f : acc_s[i] / fmaxf(l_s[row], 1e-20f);
     store_f(out_base, ((long long)qi * h + g * rep + r) * hd_v + d, o);
+  }
+}
+
+// Second launch of the split decode kernels (paged_decode_attention.cu,
+// paged_cross_decode_attention.cu), grid (slots, KV heads): each split of
+// a (slot, KV head) wrote its partial state for the rep rows at
+// part[((slot * kvh + g) * splits + split) * rep * (hd_v + 2)] as
+// attend() lays it out (m, l, then rep * hd_v unnormalised
+// accumulators).  Rescale each split by exp(m_split - max m), sum and
+// normalise; a row whose every split saw no key writes 0.
+template <typename T>
+__global__ void combine_splits(const float* __restrict__ part,
+                               T* __restrict__ out, int h, int kvh,
+                               int hd_v, int splits) {
+  const int bi = blockIdx.x, g = blockIdx.y;
+  const int rep = h / kvh;
+  const int stride = rep * (hd_v + 2);
+  const float* base = part + (long long)(bi * kvh + g) * splits * stride;
+  for (int i = threadIdx.x; i < rep * hd_v; i += blockDim.x) {
+    const int r = i / hd_v;
+    float m = NEG_INF;
+    for (int s = 0; s < splits; ++s) m = fmaxf(m, base[s * stride + r]);
+    float l = 0.f, a = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float* ps = base + s * stride;
+      const float w = expf(ps[r] - m);
+      l = fmaf(ps[rep + r], w, l);
+      a = fmaf(ps[2 * rep + i], w, a);
+    }
+    const float o = m == NEG_INF ? 0.f : a / fmaxf(l, 1e-20f);
+    store_f(out, ((long long)bi * h + g * rep) * hd_v + i, o);
   }
 }
 

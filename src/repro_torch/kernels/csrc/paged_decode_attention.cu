@@ -11,11 +11,11 @@
 // all of them (paged_attention.cuh), and covers only the block-table
 // slots [split * slots_per_split, (split + 1) * slots_per_split).  It
 // writes its partial softmax state (m, l, unnormalised acc) to a
-// workspace.  combine_kernel, grid (slots, KV heads), rescales the
-// splits' partials by exp(m_split - max m) and normalises.  The TPU
-// kernel instead walked all of a slot's pages in one sequential grid
-// dimension; on the card that left one block per (slot, KV head), 16 at
-// the served shapes, for 132 SMs.
+// workspace.  combine_splits (paged_attention.cuh), grid (slots, KV
+// heads), rescales the splits' partials by exp(m_split - max m) and
+// normalises.  The TPU kernel instead walked all of a slot's pages in one
+// sequential grid dimension; on the card that left one block per (slot,
+// KV head), 16 at the served shapes, for 132 SMs.
 //
 // Pages past lens and pages slid out of the window are never read: their
 // table slots may point at freed or scratch pages.  A split with no live
@@ -56,30 +56,6 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    combine_kernel(const float* __restrict__ part, T* __restrict__ out,
-                   int h, int kvh, int hd_v, int splits) {
-  const int bi = blockIdx.x, g = blockIdx.y;
-  const int rep = h / kvh;
-  const int stride = rep * (hd_v + 2);
-  const float* base = part + (long long)(bi * kvh + g) * splits * stride;
-  for (int i = threadIdx.x; i < rep * hd_v; i += blockDim.x) {
-    const int r = i / hd_v;
-    float m = paged_attn::NEG_INF;
-    for (int s = 0; s < splits; ++s) m = fmaxf(m, base[s * stride + r]);
-    float l = 0.f, a = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const float* ps = base + s * stride;
-      const float w = expf(ps[r] - m);
-      l = fmaf(ps[rep + r], w, l);
-      a = fmaf(ps[2 * rep + i], w, a);
-    }
-    const float o = m == paged_attn::NEG_INF ? 0.f : a / fmaxf(l, 1e-20f);
-    paged_attn::store_f(out, ((long long)bi * h + g * rep) * hd_v + i, o);
-  }
-}
-
-template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* block_table, const void* lens, void* part, void* out,
            int b, int h, int kvh, int hd, int hd_v, int page, int n_slots,
@@ -99,7 +75,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
       hd_v, page, n_slots, slots_per_split, tile_pages, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  combine_kernel<T><<<dim3(b, kvh), THREADS, 0, stream>>>(
+  paged_attn::combine_splits<T><<<dim3(b, kvh), THREADS, 0, stream>>>(
       static_cast<const float*>(part), static_cast<T*>(out), h, kvh, hd_v,
       splits);
   return (int)cudaGetLastError();

@@ -5,14 +5,17 @@ Where the reference switches the Pallas kernels to interpret mode off
 the TPU, the port dispatches on the tensors' device inside each kernel
 wrapper: the hand-written CUDA kernel for CUDA tensors, the plain
 PyTorch version for CPU tensors.  The model calls these, never a
-kernel directly.  Ported: the paged GQA prefill and decode forms and
-the absorbed MLA decode; the dense chunked-prefill form and the
-cross-attention decode come with their slices.
+kernel directly.  Ported: the paged GQA prefill and decode forms (the
+prefill also non-causal, for the cross-attention read), the absorbed
+MLA decode and the cross-attention decode; the dense chunked-prefill
+form comes with its slice.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.paged_cross_decode_attention import (
+    paged_cross_decode_attention)
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.kernels.paged_mla_decode_attention import (
     paged_mla_decode_attention)
@@ -50,6 +53,15 @@ def decode_attention(q, k_pool, v_pool, block_table, lens, *,
     return paged_decode_attention(
         q.contiguous(), k_pool, v_pool, _i32(block_table, dev),
         _i32(lens, dev), window=window)
+
+
+def cross_decode_attention(q, k_pool, v_pool, block_table, enc_lens):
+    """Non-causal decode attention over the read-only cross pages
+    (encoder K/V) via the per-request cross block table."""
+    dev = q.device
+    return paged_cross_decode_attention(
+        q.contiguous(), k_pool, v_pool, _i32(block_table, dev),
+        _i32(enc_lens, dev))
 
 
 def mla_decode_attention(q_lat, q_rope, ckv_pool, kr_pool, block_table,

@@ -27,7 +27,10 @@ from repro_torch.kernels import build, ref
 
 NAME = "paged_decode_attention"
 TILE_TOKENS = 64        # keys per shared-memory K/V tile
-SLOTS_PER_SPLIT = 8     # block-table slots one block covers
+# block-table slots one block covers: fixed, as a self table is live
+# only up to each slot's length (the cross kernel, whose tables are
+# live over their whole width, sizes its splits to the card instead)
+SLOTS_PER_SPLIT = 8
 _FLOATS = ("torch.float32", "torch.bfloat16")
 _I32 = ("torch.int32",)
 _P, _I = ctypes.c_void_p, ctypes.c_int

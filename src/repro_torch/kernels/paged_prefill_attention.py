@@ -16,7 +16,8 @@ cores; see the source for the design.
 On a CPU tensor the wrapper runs the plain version
 (``ref.paged_prefill_attention``); on a CUDA tensor it launches the
 kernel or raises.  ``paged_prefill_attention.launches`` counts kernel
-launches.
+launches, and ``paged_prefill_attention.noncausal_launches`` those of
+them with ``causal=False`` (the cross-attention read of a chunk).
 """
 from __future__ import annotations
 
@@ -95,7 +96,10 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, kv_len,
         torch.cuda.current_stream(dev).cuda_stream)
     build.raise_on_error(NAME, err)
     paged_prefill_attention.launches += 1
+    if not causal:
+        paged_prefill_attention.noncausal_launches += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.noncausal_launches = 0

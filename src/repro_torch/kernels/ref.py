@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the paged-attention kernels (GQA prefill,
-GQA decode, absorbed MLA decode).
+GQA decode, absorbed MLA decode, cross-attention decode).
 
 Each function computes what its CUDA kernel computes, with dense
 tensor ops: gather the block-table pages, masked softmax in f32, PV.
@@ -77,6 +77,17 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lens, *,
     p = _masked_softmax(s, mask[:, None, None])
     out = torch.einsum("bgrk,bkgd->bgrd", p, v)
     return out.reshape(b, h, hd_v).to(q.dtype)
+
+
+def paged_cross_decode_attention(q, k_pool, v_pool, block_table,
+                                 enc_lens):
+    """One decode query per slot against the slot's read-only cross
+    (encoder) pages, non-causal: every key tok < enc_len, no window.
+    That is the decode read at window 0 with ``enc_lens`` as the
+    lengths, so it gathers and masks through ``paged_decode_attention``;
+    a slot with enc_len = 0 gives 0.  q: (b, h, hd); block_table: (b,
+    cross_slots); enc_lens: (b,).  Returns (b, h, hd_v)."""
+    return paged_decode_attention(q, k_pool, v_pool, block_table, enc_lens)
 
 
 def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, kr_pool,

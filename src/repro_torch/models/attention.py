@@ -1,6 +1,7 @@
-"""Self-attention on the paged serving path: RoPE, GQA and MLA
-(DeepSeek-V2 multi-head latent attention) projections, and the
-prefill/decode attention against one layer's page pool.
+"""Attention on the paged serving path: RoPE, GQA and MLA (DeepSeek-V2
+multi-head latent attention) projections, the prefill/decode attention
+against one layer's page pool, and the cross-attention of VLM and
+encoder-decoder models against read-only cross pages of the same pool.
 
 GQA attends through the CUDA kernels in ``kernels/ops.py`` in both
 phases.  MLA attends in its absorbed form over a LATENT pool (the
@@ -12,9 +13,17 @@ MLA kernel.
 The reference updates its pools functionally and returns them; here the
 ``*_paged`` functions scatter the new K/V (or latent) into the layer's
 pool tensors IN PLACE (``index_put_``) and return only the attention
-output.  Cross-attention comes with its slice.
+output.
+
+Cross-attention reads the encoder K/V through a second, per-request
+block table: the prefill chunk that holds a request's first segment
+scatters it once (``cross_prefill_paged``), every later read goes
+through the paged kernels non-causally (prefill: kernel 1 with
+``causal=False``; decode: the cross decode kernel).
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -231,3 +240,125 @@ def mla_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
         lens, scale=mla_scale(cfg), window=window)
     out = torch.einsum("bhl,lhv->bhv", o_lat.float(), w_uv.float())
     return out.reshape(b, 1, -1).to(x.dtype) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (VLM image layers / whisper encoder-decoder)
+# ---------------------------------------------------------------------------
+# up-cast copies of weights, by (id of the weight, type): (weak reference
+# to the weight, its version counter when copied (None for an inference
+# tensor, which has none), the copy)
+_PROMOTED: dict = {}
+
+
+def _promote(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w`` in ``dtype``, copied once per weight and type: the copy is
+    kept while the weight lives and made anew only if the weight was
+    changed in place since."""
+    if w.dtype == dtype:
+        return w
+    key = (id(w), dtype)
+    version = None if w.is_inference() else w._version
+    hit = _PROMOTED.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == version:
+        return hit[2]
+    ref_w = weakref.ref(w, lambda _, k=key: _PROMOTED.pop(k, None))
+    _PROMOTED[key] = (ref_w, version, w.to(dtype))
+    return _PROMOTED[key][2]
+
+
+def promoted(p: dict, dtype: torch.dtype) -> dict:
+    """The weights of ``p`` in the type JAX promotes ``x @ w`` to for an
+    ``x`` of ``dtype``: an f32 activation against bf16 weights runs in
+    f32, as in the reference, where torch would refuse the mixed
+    product.  Weights already of that type are not copied; the others
+    are up-cast once per weight, not on every call."""
+    return {k: _promote(w, torch.promote_types(dtype, w.dtype))
+            for k, w in p.items()}
+
+
+def cross_kv(p: dict, cfg: ModelConfig, enc: torch.Tensor):
+    """Cross K/V (b, s, kvh, hd) from the encoder output ``enc`` (b, s,
+    d), in the promoted type of enc and the weights: f32 for the f32
+    ``enc`` the engines pass, whatever the model's dtype.  The caller
+    casts to the pool's dtype at the scatter."""
+    b, s, _ = enc.shape
+    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    w = promoted({"wk": p["wk"], "wv": p["wv"]}, enc.dtype)
+    k = (enc.to(w["wk"].dtype) @ w["wk"]).reshape(b, s, kvh, hd)
+    v = (enc.to(w["wv"].dtype) @ w["wv"]).reshape(b, s, kvh, hd)
+    return k, v
+
+
+def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                      ) -> torch.Tensor:
+    """Bidirectional attention of the encoder stack: q (b, s, h, hd),
+    k/v (b, s, kvh, hd).  f32 scores, a softmax over exactly the s
+    frames (nothing padded), and PV.  The reference runs this as its
+    blocked ``flash_attn(causal=False, kv_len=s)`` in plain ``jnp``, not
+    a Pallas kernel.  Returns (b, s, h, hd) in q's dtype."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.float().reshape(b, s, kvh, h // kvh, hd)
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float())
+    pattn = torch.softmax(scores * hd ** -0.5, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", pattn, v.float())
+    return out.reshape(b, s, h, -1).to(q.dtype)
+
+
+def cross_attend_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                       k_layer: torch.Tensor, v_layer: torch.Tensor, *,
+                       cross_bt, cross_len) -> torch.Tensor:
+    """Read-only cross-attention sublayer of a fused paged prefill
+    chunk: every segment's cross pages already hold their encoder K/V,
+    so no encoder work and no scatter.  x: (segs, sq, d) normed decoder
+    activations; cross_bt: (segs, cross_slots) the read-only cross block
+    table; cross_len: (segs,) encoder tokens (0 for a pad segment, whose
+    rows then give 0).  Every query attends all ``cross_len`` encoder
+    tokens (kernel 1, non-causal, q_offset 0).  Returns the attention
+    output (segs, sq, d)."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    out = ops.prefill_attention(q, k_layer, v_layer, cross_len,
+                                torch.zeros_like(cross_len),
+                                block_table=cross_bt, causal=False)
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def cross_prefill_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                        k_layer: torch.Tensor, v_layer: torch.Tensor, *,
+                        enc_h, cross_bt, cross_len, cross_pg,
+                        cross_off) -> torch.Tensor:
+    """Cross-attention sublayer of the fused paged prefill chunk that
+    carries encoder work: the one-shot in-place scatter of the encoder
+    K/V into the cross pages, then the read of ``cross_attend_paged``.
+
+    enc_h: (segs, enc_ctx, d) encoder output per segment (f32);
+    cross_pg/cross_off: (segs, enc_ctx) physical (page, in-page) slot of
+    each encoder token's write.  Segments past their request's first
+    chunk point these at the scratch page, so the encoder K/V lands once
+    per request; the scratch page takes many duplicate writes and is
+    never read (``cross_len`` masks it).  Returns the attention output
+    (segs, sq, d)."""
+    ck, cv = cross_kv(p, cfg, enc_h)
+    idx = (cross_pg.long(), cross_off.long())
+    k_layer.index_put_(idx, ck.to(k_layer.dtype))
+    v_layer.index_put_(idx, cv.to(v_layer.dtype))
+    return cross_attend_paged(p, cfg, x, k_layer, v_layer,
+                              cross_bt=cross_bt, cross_len=cross_len)
+
+
+def cross_decode_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                       k_layer: torch.Tensor, v_layer: torch.Tensor, *,
+                       cross_bt, cross_len) -> torch.Tensor:
+    """Batched one-token cross attention against the read-only cross
+    pages, with no scatter: the encoder K/V was installed at admission
+    and never changes.  x: (slots, 1, d); cross_bt: (slots,
+    cross_slots); cross_len: (slots,) encoder tokens per slot (0 for an
+    empty slot).  Returns the attention output (slots, 1, d)."""
+    b = x.shape[0]
+    q = (x @ p["wq"]).reshape(b, cfg.n_heads, cfg.resolved_head_dim)
+    out = ops.cross_decode_attention(q, k_layer, v_layer, cross_bt,
+                                     cross_len)
+    return out.reshape(b, 1, -1) @ p["wo"]

@@ -7,9 +7,11 @@ nor the JAX package.  The reference stacks its repeated layers: ``body``
 is a tuple with one dict per ``pattern`` kind whose leaves carry a
 leading ``n_repeats`` dim; ``prefix`` and ``suffix`` are unrolled.  The
 port's ``layers`` list is prefix + body (repeat-major, pattern order) +
-suffix, the order of the reference's absolute layer ids.  Leaves keep
-their dtype: the MoE router stays f32 in a bf16 model, as in the
-reference.
+suffix, the order of the reference's absolute layer ids, each layer's
+dict whole (a CROSS_ATTN layer's ``norm_c`` and ``cross`` included).  An
+encoder-decoder's ``encoder`` {blocks, norm} comes across with its
+blocks as a list.  Leaves keep their dtype: the MoE router stays f32 in
+a bf16 model, as in the reference.
 """
 from __future__ import annotations
 
@@ -46,8 +48,8 @@ def from_reference(tree: Dict[str, Any], cfg: ModelConfig,
     pytree of numpy arrays, on ``device``, dtypes kept."""
     if not paged_supported(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: only full-attention GQA and MLA configs are "
-            "ported so far")
+            f"{cfg.name}: only full-attention GQA, MLA and "
+            "cross-attention configs are ported so far")
     out: Dict[str, Any] = {
         k: to_tensor(tree[k], device)
         for k in ("embed", "final_norm", "pos_embed", "lm_head")
@@ -62,4 +64,8 @@ def from_reference(tree: Dict[str, Any], cfg: ModelConfig,
         raise ValueError(f"{cfg.name}: {len(layers)} layers in the tree, "
                          f"config has {cfg.n_layers}")
     out["layers"] = layers
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {"blocks": [_tree(b, device) for b in enc["blocks"]],
+                          "norm": to_tensor(enc["norm"], device)}
     return out

@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.paged_cross_decode_attention import (
+    paged_cross_decode_attention, slots_per_split)
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention)
 from repro_torch.kernels.paged_mla_decode_attention import (
@@ -246,6 +248,17 @@ def test_wrappers_refuse_unsupported_devices():
         paged_decode_attention(q, q, q, q, q)
 
 
+def test_cross_wrapper_refuses_unsupported_devices_and_splits_evenly():
+    q = torch.zeros(1, 2, 8, device="meta")
+    with pytest.raises(ValueError):
+        paged_cross_decode_attention(q, q, q, q, q)
+    # Llama-3.2-Vision's 8 slots x 8 KV heads x 100 cross slots, and
+    # Whisper's 8 x 6 x 94, fill 132 SMs at least twice over
+    assert slots_per_split(8, 8, 100, 132) == 20
+    assert slots_per_split(8, 6, 94, 132) == 16
+    assert slots_per_split(1, 1, 3, 132) == 1
+
+
 def test_mla_wrapper_refuses_unsupported_devices_and_shapes():
     q = torch.zeros(1, 2, 8, device="meta")
     with pytest.raises(ValueError):
@@ -262,6 +275,7 @@ def test_mla_wrapper_refuses_unsupported_devices_and_shapes():
     (14, 2, 64, 16),      # qwen2-0.5b
     (4, 4, 32, 4),        # rep 1, small pages
     (4, 2, 128, 64),      # wide heads, one page per tile
+    (32, 8, 128, 16),     # Llama-3.2-Vision self-attention: hd 128, rep 4
 ])
 def test_cuda_kernels_match_plain_versions(dtype, h, kvh, hd, page):
     """On the card: each CUDA kernel against its plain version on the
@@ -349,3 +363,46 @@ def test_cuda_mla_kernel_matches_plain_version(q_dtype, pool_dtype, h, lora,
         assert float((got.float() - exp.float()).abs().max()) < tol
         assert float(got[1].float().abs().max()) == 0.0
     assert paged_mla_decode_attention.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kvh,hd,page,enc_len", [
+    (8, 32, 8, 128, 16, 1600),   # Llama-3.2-Vision at full width
+    (8, 6, 6, 64, 16, 1500),     # Whisper-tiny: partly filled last page
+    (3, 4, 2, 32, 4, 13),        # the smoke shapes, ctx 13
+])
+def test_cuda_cross_kernel_matches_plain_version(dtype, b, h, kvh, hd, page,
+                                                 enc_len):
+    """On the card: the paged cross decode kernel against its plain
+    version on the same CUDA inputs: every live slot at enc_len through
+    its own cross table, pad slots and an empty slot (enc_len 0) on a
+    scratch page of garbage."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    tdt = getattr(torch, dtype)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    n_slots = -(-enc_len // page) + 1          # one pad slot past the end
+    npages = b * n_slots + 1
+    trash = npages - 1
+    rng = np.random.default_rng(13)
+    q = torch.from_numpy(_rand(rng, (b, h, hd))).to(dev).to(tdt)
+    kp, vp = (torch.from_numpy(_rand(rng, (npages, page, kvh, hd)))
+              .to(dev).to(tdt) for _ in range(2))
+    kp[trash], vp[trash] = 1e4, -1e4
+    bt = rng.permutation(trash)[:b * n_slots].reshape(b, n_slots)
+    bt[:, -1] = trash
+    bt[1] = trash
+    bt = torch.from_numpy(bt.astype(np.int32)).to(dev)
+    lens = torch.full((b,), enc_len, dtype=torch.int32, device=dev)
+    lens[1] = 0
+    before = paged_cross_decode_attention.launches
+    got = paged_cross_decode_attention(q, kp, vp, bt, lens)
+    exp = ref.paged_cross_decode_attention(q, kp, vp, bt, lens)
+    torch.cuda.synchronize()
+    assert paged_cross_decode_attention.launches == before + 1
+    assert got.dtype == tdt
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - exp.float()).abs().max()) < tol
+    assert float(got[1].float().abs().max()) == 0.0
