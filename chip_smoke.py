@@ -7,7 +7,7 @@ Needs one NVIDIA Hopper card with CUDA, ``nvcc`` and the repository's
 ``src/`` beside this file; without a card it exits non-zero at once.
 Phases, in order (any failure exits non-zero):
 
-1. Build the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. Build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc each, in parallel) and print the card's name and power
    limit.
 2. Each kernel against its plain PyTorch version on the same CUDA
@@ -20,22 +20,32 @@ Phases, in order (any failure exits non-zero):
    with f32 queries against f32 and bf16 latent pools (2b), and the
    cross reads at Llama-3.2-Vision's and Whisper's served shapes (2c):
    the cross decode kernel and the prefill kernel with
-   ``causal=False``.  bf16 outputs are held to a limit scaled by the
-   plain output's magnitude (``limit``).
+   ``causal=False``.  2d: the dense chunked-prefill kernel, driven
+   through its entry (``ops.prefill_attention`` with no block table) and
+   held against its plain version at qwen2's and Llama-3.2-Vision's
+   widths (8 requests, a 512-query chunk at 512 in caches of 2048,
+   ragged kv_len with a 0), causal and windowed, and against the paged
+   prefill kernel on the same K/V laid out as pages.  bf16 outputs are
+   held to a limit scaled by the plain output's magnitude (``limit``).
 3. Serve: one PrefillEngine and one DecodeEngine driven through submit
    -> step -> receive -> admit -> step, 8 greedy requests, random
    weights from a seeded generator, bf16: full-width qwen2-0.5b (3),
    DeepSeek-V2 at full width and 4 layers (3b: MLA latent pages, routed
    MoE), Llama-3.2-Vision-11B at full width and depth (3c) and
    Whisper-tiny whole (3d), both with read-only cross pages and stub
-   frontend embeddings.  Every kernel's launch counter is set to 0 just
+   frontend embeddings.  3e: full-width qwen2-0.5b through the serving
+   API, ``Cluster(runtime="engine")`` with 2 prefill and 2 decode
+   instances: the 8 requests streamed, a ninth cancelled after its third
+   streamed token.  Every kernel's launch counter is set to 0 just
    before each run and read just after it.
 4. Device vs CPU in f32, once on the card (kernels) and once on the CPU
    (plain versions): qwen2-0.5b at 2 layers on the served requests (4),
    DeepSeek-V2 at 2 layers (dense prefix + 1 routed) on 2 short requests
    (4b), Whisper-tiny whole and Llama-3.2-Vision at one pattern period
    (5 layers) on 2 short requests (4c): same greedy tokens, first-chunk
-   logits within tolerance.
+   logits within tolerance.  4d: phase 3e's Cluster run at 2 layers in
+   f32, on the card and on the CPU: the same token streams, virtual
+   timestamps and instance assignment.
 5. Numbers: prefill and decode tokens/s of the served runs, and each
    kernel's time at the served shapes beside its bound, its plain
    version and one PyTorch library call, measured with CUDA events.
@@ -96,7 +106,17 @@ SOURCES = {"paged_prefill_attention":
            "paged_mla_decode_attention":
            "src/repro/kernels/paged_mla_decode_attention.py:92",
            "paged_cross_decode_attention":
-           "src/repro/kernels/paged_cross_decode_attention.py:87"}
+           "src/repro/kernels/paged_cross_decode_attention.py:87",
+           "chunked_prefill_attention":
+           "src/repro/kernels/chunked_prefill_attention.py:95"}
+# phase 2d / 5: the dense chunked prefill of 8 requests, a served chunk
+# of 512 queries at 512 in caches of max_seq; kv_len ragged: one empty
+# request, some ending inside the chunk or before it
+DENSE = dict(sq=512, skv=2048, q_offset=512,
+             kv_len=(1024, 0, 1000, 777, 600, 513, 300, 1024))
+# phase 3e / 4d: the Cluster run's instances, and the request it cancels
+CLUSTER = dict(n_prefill=2, n_decode=2)
+CANCEL = dict(prompt=256, new=256, after=3)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -414,6 +434,65 @@ def sdpa_mla_call(q_lat, q_rope, ckv_pool, kr_pool, bt, lens, scale):
                                                   scale=scale)
 
 
+def dense_args(cfg, dtype, device, gen):
+    """(q, k_cache, v_cache, kv_len, q_offset) of phase 2d at ``cfg``'s
+    attention widths: DENSE's 8 requests, q_offset an int."""
+    import torch
+    b, sq, skv = len(DENSE["kv_len"]), DENSE["sq"], DENSE["skv"]
+    hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    return (randn(b, sq, cfg.n_heads, hd), randn(b, skv, kvh, hd),
+            randn(b, skv, kvh, hd),
+            torch.tensor(DENSE["kv_len"], dtype=torch.int32, device=device),
+            DENSE["q_offset"])
+
+
+def dense_keys(q, kv_len, q_off, window=0):
+    """(b, sq) int64 numpy: the keys each row may attend (causal, below
+    kv_len, inside the window)."""
+    sq = q.shape[1]
+    q_pos = q_off + np.arange(sq)[None, :]
+    hi = np.minimum(kv_len.cpu().numpy().astype(np.int64)[:, None],
+                    q_pos + 1)
+    lo = np.maximum(q_pos - window + 1, 0) if window else 0
+    return np.maximum(hi - lo, 0)
+
+
+def dense_work(q, k_cache, v_cache, kv_len, q_off, window=0):
+    """(bytes, FLOPs) the dense prefill needs on these inputs: q read and
+    out written once, each request's K/V read once up to min(kv_len,
+    end of the chunk), and QK^T + PV for each (query head, key) the
+    masks admit."""
+    es = q.element_size()
+    b, sq, h, hd = q.shape
+    kvh, hd_v = k_cache.shape[2], v_cache.shape[3]
+    kv = np.minimum(kv_len.cpu().numpy().astype(np.int64), q_off + sq)
+    nbytes = (q.numel() * es + b * sq * h * hd_v * es
+              + int(kv.sum()) * kvh * (hd + hd_v) * es + 4 * b)
+    keys = int(dense_keys(q, kv_len, q_off, window).sum())
+    return nbytes, keys * h * 2 * (hd + hd_v)
+
+
+def sdpa_dense_call(q, k_cache, v_cache, kv_len, q_off):
+    """One library call computing the dense prefill on the dense caches
+    (heads expanded to the query heads) with the boolean causal and
+    length mask (a yardstick: the port never uses it)."""
+    import torch
+    import torch.nn.functional as F
+    b, sq, h, hd = q.shape
+    skv, rep = k_cache.shape[1], h // k_cache.shape[2]
+    k = k_cache.permute(0, 2, 1, 3).repeat_interleave(rep, 1).contiguous()
+    v = v_cache.permute(0, 2, 1, 3).repeat_interleave(rep, 1).contiguous()
+    k_pos = torch.arange(skv, device=q.device)
+    q_pos = q_off + torch.arange(sq, device=q.device)
+    mask = ((k_pos[None, None, :] < kv_len.long()[:, None, None])
+            & (q_pos[None, :, None] >= k_pos[None, None, :]))[:, None]
+    qt = q.permute(0, 2, 1, 3).contiguous()
+    return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
+
+
 def cuda_ms(fn, reps: int = 10) -> float:
     import torch
     fn()
@@ -577,6 +656,76 @@ def check_cross_kernels(cfg, reqs, device):
                   f"abs err {err:.3e}, at most {share:.3f} of a case's "
                   "limit (limit())")
     return {k: v[0] for k, v in worst.items()}, chunks, slot_cases
+
+
+def check_dense_kernel(configs, device, kernels):
+    """Phase 2d: kernel 5 at DENSE's shapes and each of ``configs``'
+    attention widths, f32 and bf16, causal with window 0 and WINDOW.
+    First its path: every launch counter at 0, the dense entry
+    ``ops.prefill_attention`` (no block table) called once a case, the
+    counters read.  Then each output against the plain version (rows
+    without an attendable key exactly 0), and in f32 against kernel 1
+    on the same K/V laid out as pages, request by request.  Returns
+    (launches of the path by kernel, max abs error in bf16)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.paged_prefill_attention import (
+        paged_prefill_attention)
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    cases = [(cfg, dtype, window) for cfg in configs
+             for dtype in (torch.float32, torch.bfloat16)
+             for window in (0, WINDOW)]
+    inputs = {(cfg.name, dtype): dense_args(cfg, dtype, device, gen)
+              for cfg, dtype, _ in cases}
+    zero_launches(kernels)
+    outs = [ops.prefill_attention(
+        *inputs[cfg.name, dtype][:4], torch.tensor([DENSE["q_offset"]]),
+        window=window) for cfg, dtype, window in cases]
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    check(launches["chunked_prefill_attention"] == len(cases)
+          and sum(launches.values()) == len(cases),
+          f"phase 2d: the dense entry launched {launches}, expected "
+          f"{len(cases)} launches of kernel 5 alone")
+    name, page = "chunked_prefill_attention", SERVE["page_size"]
+    bf16_err = 0.0
+    for (cfg, dtype, window), got in zip(cases, outs):
+        q, k, v, kv_len, q_off = args = inputs[cfg.name, dtype]
+        exp = ref.chunked_prefill_attention(*args, window=window)
+        check(bool(torch.isfinite(got).all()), "dense prefill: non-finite")
+        dead = torch.from_numpy(dense_keys(q, kv_len, q_off, window)
+                                == 0).to(device)
+        check(bool(dead.any()) and float(got[dead].float().abs().sum())
+              == 0.0, "dense prefill: a row without keys is not 0 (or "
+              "the case has no such row)")
+        worst = {}
+        compare(name, got, exp, worst)
+        err, share = worst[name]
+        line = (f"phase 2d: {name} vs plain, {cfg.name}, {dtype}, "
+                f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+                f"{cfg.resolved_head_dim}, window {window}: max abs err "
+                f"{err:.3e}, {share:.3f} of the limit (limit()), "
+                f"{int(dead.sum())} rows without keys exactly 0")
+        if dtype == torch.bfloat16:
+            bf16_err = max(bf16_err, err)
+        else:
+            # kernel 1 on the same K/V as pages: request i's cache is
+            # pages [i * skv / page, (i + 1) * skv / page)
+            b, skv = k.shape[:2]
+            n_slots = skv // page
+            bt = torch.arange(b * n_slots, dtype=torch.int32,
+                              device=device).reshape(b, n_slots)
+            paged = paged_prefill_attention(
+                q, k.reshape(b * n_slots, page, *k.shape[2:]),
+                v.reshape(b * n_slots, page, *v.shape[2:]), bt, kv_len,
+                torch.full((b,), q_off, dtype=torch.int32, device=device),
+                window=window)
+            perr = float((paged - got).abs().max())
+            check(perr <= TOL["torch.float32"], f"phase 2d: kernel 5 and "
+                  f"kernel 1 on pages differ by {perr}")
+            line += f"; vs kernel 1 on pages {perr:.3e}"
+        print(line)
+    return launches, bf16_err
 
 
 class TieRecorder:
@@ -917,6 +1066,112 @@ def cross_vs_cpu(cfg, device):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+def cluster_run(cfg, params, device, kernels=None):
+    """Phases 3e / 4d: the N_REQUESTS requests (32 new tokens each)
+    through ``Cluster(runtime="engine")`` with CLUSTER's instances and
+    the SERVE settings, plus one request of CANCEL["new"] new tokens
+    cancelled after its CANCEL["after"]th streamed token; every other
+    handle streamed to its end.  Checks the run; returns (cluster, a
+    record of what must not depend on the device: per request the
+    phase, streamed and result tokens, virtual timestamps and its
+    prefill / decode instance), and, with ``kernels``, the launches by
+    kernel of the run (counters set to 0 just before it)."""
+    from repro_torch.core.kv_transfer import kv_page_bytes
+    from repro_torch.runtime.request import Phase
+    from repro_torch.serving import Cluster, SamplingParams
+    reqs = make_requests(cfg.vocab_size)
+    rng = np.random.default_rng(SEED + 9)
+    long_prompt = rng.integers(0, cfg.vocab_size,
+                               CANCEL["prompt"]).astype(np.int32)
+    cl = Cluster(cfg, runtime="engine", params=params, device=device,
+                 chunk_size=SERVE["chunk_size"],
+                 page_size=SERVE["page_size"], max_seq=SERVE["max_seq"],
+                 n_pages=SERVE["n_pages"], max_batch=SERVE["max_slots"],
+                 **CLUSTER)
+    free0 = [(i.pe.alloc.free_pages, i.de.alloc.free_pages)
+             for i in cl.instances]
+    if kernels is not None:
+        zero_launches(kernels)
+    handles = [cl.submit(r.prompt_tokens, sampling=SamplingParams(
+        max_new_tokens=NEW_TOKENS)) for r in reqs]
+    long_h = cl.submit(long_prompt, sampling=SamplingParams(
+        max_new_tokens=CANCEL["new"]))
+    stream = iter(long_h)
+    first = [next(stream) for _ in range(CANCEL["after"])]
+    check(long_h.cancel(), "phase 3e: the long request was already done")
+    streamed = {h.rid: list(h) for h in handles}
+    cl.run()
+    launches = None
+    if kernels is not None:
+        launches = {name: fn.launches for name, fn in kernels.items()}
+    check(long_h.result().phase == Phase.CANCELLED
+          and long_h.result().tokens == first and list(stream) == [],
+          f"phase 3e: the cancelled request streamed "
+          f"{long_h.result().tokens} after {first}")
+    for h in handles:
+        res = h.result()
+        check(res.phase == Phase.FINISHED and len(res.tokens) == NEW_TOKENS,
+              f"{h.rid}: {res.phase}, {len(res.tokens)} tokens")
+        check(streamed[h.rid] == res.tokens, f"{h.rid}: streamed tokens "
+              "differ from result().tokens")
+    check([(i.pe.alloc.free_pages, i.de.alloc.free_pages)
+           for i in cl.instances] == free0, "phase 3e: pages not freed")
+    check(sum(1 for i in cl.instances if i.pe.chunk_steps) == 2
+          and sum(1 for i in cl.instances if i.de.iterations) == 2,
+          "phase 3e: the work did not spread over 2 prefill and 2 decode "
+          "instances")
+    ps = SERVE["page_size"]
+    wire = sum(kv_page_bytes(cfg, len(h.request.prompt_tokens), ps)
+               for h in handles + [long_h])
+    check(cl.network.bytes_sent == wire, f"phase 3e: {cl.network.bytes_sent}"
+          f" bytes sent, expected {wire}")
+    record = {}
+    for h in handles + [long_h]:
+        r = h.result()
+        e = cl.gsched.table[h.rid]
+        record[h.rid] = (r.phase.value, streamed.get(h.rid, first), r.tokens,
+                         r.arrival, r.t_prefill_start, r.t_first_token,
+                         r.t_transfer_done, r.t_decode_start, r.t_finish,
+                         e.prefill_iid, e.decode_iid)
+    return cl, record, launches
+
+
+def cluster_phase(cfg, params, device, kernels, card):
+    """Phase 3e: cluster_run on the card with full-width ``cfg``;
+    kernels 1 and 2 launched, 3, 4 and 5 not.  Prints virtual mean
+    TTFT / JCT, wall tokens/s over each role's ``busy`` and the wire
+    bytes."""
+    import torch
+    cl, record, launches = cluster_run(cfg, params, device, kernels)
+    check(launches["paged_prefill_attention"] > 0
+          and launches["paged_decode_attention"] > 0
+          and launches["paged_mla_decode_attention"] == 0
+          and launches["paged_cross_decode_attention"] == 0
+          and launches["chunked_prefill_attention"] == 0,
+          f"phase 3e: launches {launches}")
+    res = cl.result()
+    m = res.metrics
+    prompt = sum(len(h.prompt_tokens) for h in cl._reqs.values())
+    decoded = sum(len(rec[2]) - 1 for rec in record.values())
+    print(f"phase 3e: Cluster(runtime=\"engine\"), {cfg.name} "
+          f"{cfg.dtype}, "
+          f"{len(cl.instances)} instances "
+          f"({CLUSTER['n_prefill']} prefill + {CLUSTER['n_decode']} "
+          f"decode): {m['n']} finished with {NEW_TOKENS} tokens, 1 "
+          f"cancelled after {CANCEL['after']}; launches {launches}; "
+          f"chunks {[i.pe.chunk_steps for i in cl.instances]}, decode "
+          f"iterations {[i.de.iterations for i in cl.instances]}; pages "
+          f"all freed; {cl.network.bytes_sent} bytes sent")
+    print(f"phase 3e: virtual mean TTFT {m['avg_ttft']:.3f} s, JCT "
+          f"{m['avg_jct']:.3f} s; wall: prefill {prompt} tokens in "
+          f"{res.prefill_busy:.3f} s busy = {prompt / res.prefill_busy:.1f} "
+          f"tokens/s, decode {decoded} tokens in {res.decode_busy:.3f} s "
+          f"busy = {decoded / res.decode_busy:.1f} tokens/s ({card})")
+    del cl
+    torch.cuda.empty_cache()
+    return launches
+
+
 def time_kernel(name, cases, kern, plain, lib, work, dtype, card):
     """Phase 5: mean ms per launch over ``cases`` (tuples of arguments)
     of the kernel, its plain version and the library call, and the
@@ -953,6 +1208,8 @@ def main() -> int:
     from repro_torch.core.backend import backend_for
     from repro_torch.kernels import build
     from repro_torch.kernels import ref
+    from repro_torch.kernels.chunked_prefill_attention import (
+        chunked_prefill_attention)
     from repro_torch.kernels.paged_cross_decode_attention import (
         paged_cross_decode_attention)
     from repro_torch.kernels.paged_decode_attention import (
@@ -976,7 +1233,8 @@ def main() -> int:
     kernels = {"paged_prefill_attention": paged_prefill_attention,
                "paged_decode_attention": paged_decode_attention,
                "paged_mla_decode_attention": paged_mla_decode_attention,
-               "paged_cross_decode_attention": paged_cross_decode_attention}
+               "paged_cross_decode_attention": paged_cross_decode_attention,
+               "chunked_prefill_attention": chunked_prefill_attention}
     check(tuple(kernels) == build.NAMES, f"kernels {build.NAMES}")
 
     # -- phase 1: build ------------------------------------------------
@@ -1006,8 +1264,10 @@ def main() -> int:
     # 2a: kernels 1 and 2 at the cross models' self-attention widths and
     # served shapes: Llama-3.2-Vision (hd 128, rep 4), Whisper (hd 64,
     # rep 1, prompts of 32-400 tokens)
+    self_geo = {}
     for c, rq in ((vlm_cfg, reqs), (wh_cfg, wh_reqs)):
-        for name, err in check_kernels(c, rq, device, tag="2a")[0].items():
+        worst, *self_geo[c.name] = check_kernels(c, rq, device, tag="2a")
+        for name, err in worst.items():
             errs[name] = max(errs[name], err)
     # 2c: the cross reads at both cross models' served shapes
     cross_geo = {}
@@ -1018,6 +1278,10 @@ def main() -> int:
         for name, err in worst.items():
             key = name.split(" ")[0]
             errs[key] = max(errs[key], err)
+    # 2d: the dense chunked prefill through its entry, qwen2's and
+    # Llama-3.2-Vision's widths
+    dense_launches, errs["chunked_prefill_attention"] = check_dense_kernel(
+        [cfg, vlm_cfg], device, kernels)
 
     # -- phase 3: serve full-width qwen2-0.5b in bf16 --------------------
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -1029,7 +1293,10 @@ def main() -> int:
     check(launches["paged_decode_attention"]
           >= cfg.n_layers * de.iterations > 0, f"decode launches "
           f"{launches} < {cfg.n_layers} x {de.iterations} iterations")
-    del params, pe, de
+    del pe, de
+    # -- phase 3e: the same weights through the serving API -------------
+    cluster_phase(cfg, params, device, kernels, card)
+    del params
     torch.cuda.empty_cache()
 
     # -- phase 3b: serve full-width DeepSeek-V2, 4 layers, bf16 ----------
@@ -1083,6 +1350,18 @@ def main() -> int:
     print(f"phase 4: 2-layer f32 device vs CPU: {len(out_gpu)} token "
           f"streams identical, first-chunk logits max abs err {lerr:.3e} "
           f"(tolerance {LOGIT_TOL:g}), {time.perf_counter() - t0:.1f} s")
+    # -- phase 4d: phase 3e's Cluster run, 2 layers, f32, card vs CPU -----
+    t0 = time.perf_counter()
+    records = [cluster_run(cfg2, params, dev)[1]
+               for dev, params in ((device, gpu_params), ("cpu", cpu_params))]
+    for rid in set(records[0]) | set(records[1]):
+        check(records[0].get(rid) == records[1].get(rid), f"phase 4d: "
+              f"{rid} differs: card {records[0].get(rid)}, CPU "
+              f"{records[1].get(rid)}")
+    print(f"phase 4d: Cluster 2+2, 2-layer f32, card vs CPU: "
+          f"{len(records[0])} requests with identical token streams, "
+          f"virtual timestamps and instance assignment, "
+          f"{time.perf_counter() - t0:.1f} s")
     del gpu_params, cpu_params
 
     # -- phase 4b: DeepSeek-V2 device vs CPU, 2 layers, f32 --------------
@@ -1164,10 +1443,36 @@ def main() -> int:
                  for g in slot_cases[:1]],
                 paged_decode_attention, ref.paged_decode_attention,
                 sdpa_decode_call, dec_work, dtype, card)
+    _, wh_slots = self_geo[wh_cfg.name]
+    time_kernel(f"paged_decode_attention, {wh_cfg.name} self-attention",
+                [decode_args(wh_cfg, g, wh_pools, dtype, device, gen)
+                 for g in wh_slots[:1]],
+                paged_decode_attention, ref.paged_decode_attention,
+                sdpa_decode_call, dec_work, dtype, card)
+    time_kernel(
+        f"paged_prefill_attention causal=False, {wh_cfg.name} cross read",
+        [prefill_args(wh_cfg, g, wh_pools, dtype, device, gen)
+         for g in cross_geo[wh_cfg.name][0]],
+        lambda *a: paged_prefill_attention(*a, causal=False),
+        lambda *a: ref.paged_prefill_attention(*a, causal=False),
+        lambda *a: sdpa_prefill_call(*a, causal=False),
+        lambda a: prefill_work(a[0], a[1], *a[3:], causal=False),
+        dtype, card)
+    del vlm_pools, wh_pools
+    timing["chunked_prefill_attention"] = time_kernel(
+        "chunked_prefill_attention", [dense_args(cfg, dtype, device, gen)],
+        chunked_prefill_attention, ref.chunked_prefill_attention,
+        sdpa_dense_call, lambda a: dense_work(*a), dtype, card)
+    time_kernel(f"chunked_prefill_attention, {vlm_cfg.name} widths",
+                [dense_args(vlm_cfg, dtype, device, gen)],
+                chunked_prefill_attention, ref.chunked_prefill_attention,
+                sdpa_dense_call, lambda a: dense_work(*a), dtype, card)
     launches["paged_mla_decode_attention"] = ds_launches[
         "paged_mla_decode_attention"]
     launches["paged_cross_decode_attention"] = vlm_launches[
         "paged_cross_decode_attention"]
+    launches["chunked_prefill_attention"] = dense_launches[
+        "chunked_prefill_attention"]
     rows = []
     for name in build.NAMES:
         tm = timing[name]

@@ -23,7 +23,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 NAMES = ("paged_prefill_attention", "paged_decode_attention",
-         "paged_mla_decode_attention", "paged_cross_decode_attention")
+         "paged_mla_decode_attention", "paged_cross_decode_attention",
+         "chunked_prefill_attention")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -1,7 +1,9 @@
 // Shared device body of the three GQA paged-attention kernels
 // (paged_prefill_attention.cu, paged_decode_attention.cu,
-// paged_cross_decode_attention.cu) and the split combine of the two
-// decode ones.
+// paged_cross_decode_attention.cu) and of the dense chunked-prefill
+// kernel (chunked_prefill_attention.cu, which views a request's cache as
+// one-token pages under the identity table), and the split combine of
+// the two decode ones.
 //
 // One thread block owns R = n_q * rep query rows that all read the same
 // KV head g: n_q consecutive query positions of one segment (decode:
@@ -149,8 +151,9 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ pool,
 // consecutive query positions are h * hd (h * hd_v) elements apart.
 // q_pos0 is the absolute position of the block's first query; n_q of its
 // query positions exist (the ragged edge of a segment is not computed
-// and not written).  bt is the segment's block-table row.  The block
-// reads only the live slots inside [slot_begin, slot_end).
+// and not written).  bt is the segment's block-table row, or nullptr for
+// the identity table (slot j holds page j).  The block reads only the
+// live slots inside [slot_begin, slot_end).
 //
 // RT is the rows per thread of the score and PV blocks: 4 where a block
 // holds many rows (prefill), 1 for decode's rep rows.
@@ -219,7 +222,7 @@ __device__ void attend(const T* __restrict__ q_base,
   for (int p0 = p_lo; p0 < p_hi; p0 += tile_pages) {
     const int np = min(tile_pages, p_hi - p0);
     const int n_tok = np * page;
-    if (tid < np) pg_s[tid] = bt[p0 + tid];
+    if (tid < np) pg_s[tid] = bt != nullptr ? bt[p0 + tid] : p0 + tid;
     __syncthreads();
     load_tile(k_pool, pg_s, k_s, hdp, n_tok, page, kvh, g, hd);
     load_tile(v_pool, pg_s, v_s, hd_v, n_tok, page, kvh, g, hd_v);

@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the paged-attention kernels (GQA prefill,
-GQA decode, absorbed MLA decode, cross-attention decode).
+"""Plain PyTorch versions of the attention kernels (paged GQA prefill,
+paged GQA decode, absorbed MLA decode, cross-attention decode, dense
+chunked prefill).
 
 Each function computes what its CUDA kernel computes, with dense
-tensor ops: gather the block-table pages, masked softmax in f32, PV.
+tensor ops: gather the block-table pages (the paged forms), masked
+softmax in f32, PV.
 The kernel wrappers use them for CPU tensors (the CPU tests and the
 CPU run of the engines), and ``chip_smoke.py`` holds each kernel
 against its plain version on the card.
@@ -28,32 +30,51 @@ def _masked_softmax(s, mask):
     return torch.softmax(s, dim=-1) * mask.any(dim=-1, keepdim=True)
 
 
-def paged_prefill_attention(q, k_pool, v_pool, block_table, kv_len,
-                            q_offset, *, window: int = 0,
-                            causal: bool = True):
-    """q: (segs, sq, h, hd); k_pool/v_pool: (n_pages, page, kvh, hd);
-    block_table: (segs, n_slots); kv_len, q_offset: (segs,).
-    Returns (segs, sq, h, hd_v) in q's dtype."""
+def _prefill(q, k, v, kv_len, q_pos, window, causal):
+    """q: (b, sq, h, hd) against dense k (b, K, kvh, hd) / v (b, K, kvh,
+    hd_v); q_pos: (b, sq) absolute query positions; key j sits at
+    position j.  Returns (b, sq, h, hd_v) in q's dtype."""
     b, sq, h, hd = q.shape
-    n_pages, page, kvh, hd_v = v_pool.shape
-    n_slots = block_table.shape[1]
-    rep = h // kvh
-    bt = block_table.long()
-    k = k_pool[bt].reshape(b, n_slots * page, kvh, hd).float()
-    v = v_pool[bt].reshape(b, n_slots * page, kvh, hd_v).float()
-    qf = q.float().reshape(b, sq, kvh, rep, hd)
-    s = torch.einsum("bqgrd,bkgd->bgrqk", qf, k) * hd ** -0.5
-    dev = q.device
-    q_pos = q_offset.long()[:, None] + torch.arange(sq, device=dev)
-    k_pos = torch.arange(n_slots * page, device=dev)
+    kvh, hd_v = v.shape[2], v.shape[3]
+    qf = q.float().reshape(b, sq, kvh, h // kvh, hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.float()) * hd ** -0.5
+    k_pos = torch.arange(k.shape[1], device=q.device)
     mask = k_pos[None, None, :] < kv_len.long()[:, None, None]  # (b,1,K)
     if causal:
         mask = mask & (q_pos[:, :, None] >= k_pos[None, None, :])
     if window:
         mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
     p = _masked_softmax(s, mask[:, None, None])
-    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
     return out.reshape(b, sq, h, hd_v).to(q.dtype)
+
+
+def paged_prefill_attention(q, k_pool, v_pool, block_table, kv_len,
+                            q_offset, *, window: int = 0,
+                            causal: bool = True):
+    """q: (segs, sq, h, hd); k_pool/v_pool: (n_pages, page, kvh, hd);
+    block_table: (segs, n_slots); kv_len, q_offset: (segs,).
+    Returns (segs, sq, h, hd_v) in q's dtype."""
+    b, sq = q.shape[:2]
+    page, kvh = k_pool.shape[1], k_pool.shape[2]
+    n_keys = block_table.shape[1] * page
+    bt = block_table.long()
+    k = k_pool[bt].reshape(b, n_keys, kvh, k_pool.shape[3])
+    v = v_pool[bt].reshape(b, n_keys, kvh, v_pool.shape[3])
+    q_pos = q_offset.long()[:, None] + torch.arange(sq, device=q.device)
+    return _prefill(q, k, v, kv_len, q_pos, window, causal)
+
+
+def chunked_prefill_attention(q, k_cache, v_cache, kv_len, q_offset: int,
+                              *, window: int = 0, causal: bool = True):
+    """Dense form: q (b, sq, h, hd) of every request starts at the one
+    shared position ``q_offset`` (an int); k_cache/v_cache: (b, skv,
+    kvh, hd / hd_v) per-request caches; kv_len: (b,).
+    Returns (b, sq, h, hd_v) in q's dtype."""
+    b, sq = q.shape[:2]
+    q_pos = (q_offset + torch.arange(sq, device=q.device))[None].expand(
+        b, sq)
+    return _prefill(q, k_cache, v_cache, kv_len, q_pos, window, causal)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, lens, *,

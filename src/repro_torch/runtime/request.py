@@ -151,11 +151,11 @@ class Request:
         return self.decode_len > thresh
 
 
-def summarize(reqs: List[Request]) -> dict:
+def summarize(reqs: List[Request], slo=None) -> dict:
     """Aggregate metrics over a run's requests.
 
-    The reference's ``slo=`` option (SLO attainment and goodput) comes
-    with the port of the observability plane; without it the output is
+    ``slo`` (a ``repro_torch.obs.slo.SLOSpec``) additionally reports SLO
+    attainment/goodput; with ``slo=None`` (the default) the output is
     the reference's ``slo=None`` summary, key for key.
     """
     done = [r for r in reqs if r.phase == Phase.FINISHED]
@@ -174,6 +174,9 @@ def summarize(reqs: List[Request]) -> dict:
             retries = sum(r.retries for r in failed)
             if retries:
                 out["failed_retries"] = retries
+        if slo is not None:
+            from repro_torch.obs.slo import attainment
+            out.update(attainment(reqs, slo))
         return out
     ttfts = np.array([r.ttft for r in done])
     jcts = np.array([r.jct for r in done])
@@ -211,4 +214,8 @@ def summarize(reqs: List[Request]) -> dict:
         out["cache_hit_rate"] = float(
             sum(r.cached_prefix_tokens for r in done)
             / sum(r.prompt_len for r in done))
+    # SLO attainment — opt-in via ``slo=``
+    if slo is not None:
+        from repro_torch.obs.slo import attainment
+        out.update(attainment(reqs, slo))
     return out
