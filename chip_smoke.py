@@ -27,6 +27,9 @@ Phases, in order (any failure exits non-zero):
    ragged kv_len with a 0), causal and windowed, and against the paged
    prefill kernel on the same K/V laid out as pages.  bf16 outputs are
    held to a limit scaled by the plain output's magnitude (``limit``).
+   The prefill kernels (1 and 5) run bf16 on their tensor-core body and
+   f32 on their CUDA-core body: 2d, 3-3e and 4-4d check it on the
+   wrappers' ``tensor_core_launches``.
 3. Serve: one PrefillEngine and one DecodeEngine driven through submit
    -> step -> receive -> admit -> step, 8 greedy requests, random
    weights from a seeded generator, bf16: full-width qwen2-0.5b (3),
@@ -48,7 +51,8 @@ Phases, in order (any failure exits non-zero):
    timestamps and instance assignment.
 5. Numbers: prefill and decode tokens/s of the served runs, and each
    kernel's time at the served shapes beside its bound, its plain
-   version and one PyTorch library call, measured with CUDA events.
+   version and one PyTorch library call, measured with CUDA events,
+   with its achieved TFLOP/s and the body it ran.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -508,6 +512,27 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_device_us(fn, reps: int = 20):
+    """(host µs a call, device µs a call) of ``fn``: the host's time to
+    issue ``reps`` calls without waiting for the card, and the card's
+    kernel time by the profiler (every launch of a call summed)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = sum(e.self_device_time_total for e in prof.key_averages())
+    return host, device / reps
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -665,8 +690,10 @@ def check_dense_kernel(configs, device, kernels):
     ``ops.prefill_attention`` (no block table) called once a case, the
     counters read.  Then each output against the plain version (rows
     without an attendable key exactly 0), and in f32 against kernel 1
-    on the same K/V laid out as pages, request by request.  Returns
-    (launches of the path by kernel, max abs error in bf16)."""
+    on the same K/V laid out as pages, request by request, in f32 and
+    bf16 (bf16: within the bf16 limit).  Every bf16 launch of the path
+    must run the tensor-core body and no f32 one.  Returns (launches of
+    the path by kernel, max abs error in bf16)."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.paged_prefill_attention import (
@@ -682,11 +709,14 @@ def check_dense_kernel(configs, device, kernels):
         *inputs[cfg.name, dtype][:4], torch.tensor([DENSE["q_offset"]]),
         window=window) for cfg, dtype, window in cases]
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = read_launches(kernels)
+    n_bf16 = sum(dtype == torch.bfloat16 for _, dtype, _ in cases)
     check(launches["chunked_prefill_attention"] == len(cases)
-          and sum(launches.values()) == len(cases),
-          f"phase 2d: the dense entry launched {launches}, expected "
-          f"{len(cases)} launches of kernel 5 alone")
+          and sum(launches[name] for name in kernels) == len(cases)
+          and launches["chunked_prefill_attention (tensor cores)"]
+          == n_bf16, f"phase 2d: the dense entry launched {launches}, "
+          f"expected {len(cases)} launches of kernel 5 alone, the "
+          f"{n_bf16} bf16 ones on the tensor-core body")
     name, page = "chunked_prefill_attention", SERVE["page_size"]
     bf16_err = 0.0
     for (cfg, dtype, window), got in zip(cases, outs):
@@ -708,22 +738,21 @@ def check_dense_kernel(configs, device, kernels):
                 f"{int(dead.sum())} rows without keys exactly 0")
         if dtype == torch.bfloat16:
             bf16_err = max(bf16_err, err)
-        else:
-            # kernel 1 on the same K/V as pages: request i's cache is
-            # pages [i * skv / page, (i + 1) * skv / page)
-            b, skv = k.shape[:2]
-            n_slots = skv // page
-            bt = torch.arange(b * n_slots, dtype=torch.int32,
-                              device=device).reshape(b, n_slots)
-            paged = paged_prefill_attention(
-                q, k.reshape(b * n_slots, page, *k.shape[2:]),
-                v.reshape(b * n_slots, page, *v.shape[2:]), bt, kv_len,
-                torch.full((b,), q_off, dtype=torch.int32, device=device),
-                window=window)
-            perr = float((paged - got).abs().max())
-            check(perr <= TOL["torch.float32"], f"phase 2d: kernel 5 and "
-                  f"kernel 1 on pages differ by {perr}")
-            line += f"; vs kernel 1 on pages {perr:.3e}"
+        # kernel 1 on the same K/V as pages: request i's cache is pages
+        # [i * skv / page, (i + 1) * skv / page)
+        b, skv = k.shape[:2]
+        n_slots = skv // page
+        bt = torch.arange(b * n_slots, dtype=torch.int32,
+                          device=device).reshape(b, n_slots)
+        paged = paged_prefill_attention(
+            q, k.reshape(b * n_slots, page, *k.shape[2:]),
+            v.reshape(b * n_slots, page, *v.shape[2:]), bt, kv_len,
+            torch.full((b,), q_off, dtype=torch.int32, device=device),
+            window=window)
+        perr = float((paged.float() - got.float()).abs().max())
+        check(perr <= limit(exp), f"phase 2d: kernel 5 and kernel 1 on "
+              f"pages differ by {perr} in {dtype}")
+        line += f"; vs kernel 1 on pages {perr:.3e}"
         print(line)
     return launches, bf16_err
 
@@ -869,8 +898,34 @@ def count_params(tree) -> int:
 def zero_launches(kernels) -> None:
     for fn in kernels.values():
         fn.launches = 0
-        if hasattr(fn, "noncausal_launches"):
-            fn.noncausal_launches = 0
+        for extra in ("noncausal_launches", "tensor_core_launches"):
+            if hasattr(fn, extra):
+                setattr(fn, extra, 0)
+
+
+PREFILL_KERNELS = ("paged_prefill_attention", "chunked_prefill_attention")
+
+
+def read_launches(kernels):
+    """The launch counters by kernel; kernel 1's non-causal launches
+    under ``paged_prefill_attention (causal=False)`` and the prefill
+    kernels' tensor-core launches under ``<name> (tensor cores)``."""
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches["paged_prefill_attention (causal=False)"] = kernels[
+        "paged_prefill_attention"].noncausal_launches
+    for name in PREFILL_KERNELS:
+        launches[f"{name} (tensor cores)"] = kernels[name].tensor_core_launches
+    return launches
+
+
+def check_bodies(tag, launches, dtype):
+    """Every launch of the prefill kernels ran the tensor-core body in
+    bf16 and the CUDA-core body in f32."""
+    for name in PREFILL_KERNELS:
+        tc = launches[f"{name} (tensor cores)"]
+        want = launches[name] if dtype == "bfloat16" else 0
+        check(tc == want, f"phase {tag}: {name} launched {launches[name]} "
+              f"times, {tc} on the tensor-core body, in {dtype}")
 
 
 def serve_phase(tag, cfg, params, device, kernels, card,
@@ -878,10 +933,10 @@ def serve_phase(tag, cfg, params, device, kernels, card,
     """Phase 3/3b/3c/3d: warm up, then serve the N_REQUESTS requests
     (tokens drawn in ``cfg``'s vocabulary, prompt lengths in
     ``prompts``, frontend embeddings ``enc``) with every launch counter
-    set to 0 just before and read just after.  Checks the run and prints
-    its numbers; returns (launches by kernel, prefill engine, decode
-    engine).  Kernel 1's non-causal launches are the entry
-    ``paged_prefill_attention (causal=False)``."""
+    set to 0 just before and read just after.  Checks the run (every
+    bf16 launch of kernels 1 and 5 on the tensor-core body) and prints
+    its numbers; returns (launches by kernel as ``read_launches`` gives
+    them, prefill engine, decode engine)."""
     reqs = make_requests(cfg.vocab_size, lo=prompts[0], hi=prompts[1],
                          enc=enc)
     warm = make_requests(cfg.vocab_size, n=1, lo=64, hi=64, new=2)
@@ -890,9 +945,8 @@ def serve_phase(tag, cfg, params, device, kernels, card,
     zero_launches(kernels)
     out, pe, de, t_pre, t_dec = serve(cfg, params, reqs, device,
                                       time_it=True, n_pages=n_pages)
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    launches["paged_prefill_attention (causal=False)"] = kernels[
-        "paged_prefill_attention"].noncausal_launches
+    launches = read_launches(kernels)
+    check_bodies(tag, launches, cfg.dtype)
     check(len(out) == len(reqs), f"{len(out)} of {len(reqs)} finished")
     for rid, toks in out.items():
         check(len(toks) == NEW_TOKENS, f"{rid}: {len(toks)} tokens")
@@ -1103,7 +1157,7 @@ def cluster_run(cfg, params, device, kernels=None):
     cl.run()
     launches = None
     if kernels is not None:
-        launches = {name: fn.launches for name, fn in kernels.items()}
+        launches = read_launches(kernels)
     check(long_h.result().phase == Phase.CANCELLED
           and long_h.result().tokens == first and list(stream) == [],
           f"phase 3e: the cancelled request streamed "
@@ -1138,11 +1192,12 @@ def cluster_run(cfg, params, device, kernels=None):
 
 def cluster_phase(cfg, params, device, kernels, card):
     """Phase 3e: cluster_run on the card with full-width ``cfg``;
-    kernels 1 and 2 launched, 3, 4 and 5 not.  Prints virtual mean
-    TTFT / JCT, wall tokens/s over each role's ``busy`` and the wire
-    bytes."""
+    kernels 1 and 2 launched, 3, 4 and 5 not, every bf16 launch of
+    kernel 1 on the tensor-core body.  Prints virtual mean TTFT / JCT,
+    wall tokens/s over each role's ``busy`` and the wire bytes."""
     import torch
     cl, record, launches = cluster_run(cfg, params, device, kernels)
+    check_bodies("3e", launches, cfg.dtype)
     check(launches["paged_prefill_attention"] > 0
           and launches["paged_decode_attention"] > 0
           and launches["paged_mla_decode_attention"] == 0
@@ -1172,27 +1227,50 @@ def cluster_phase(cfg, params, device, kernels, card):
     return launches
 
 
-def time_kernel(name, cases, kern, plain, lib, work, dtype, card):
+def time_kernel(name, cases, kern, plain, lib, work, dtype, card,
+                wrapper=None):
     """Phase 5: mean ms per launch over ``cases`` (tuples of arguments)
-    of the kernel, its plain version and the library call, and the
-    bound."""
-    ms = plain_ms = lib_ms = bnd = 0.0
+    of the kernel, its plain version and the library call, the bound,
+    the achieved TFLOP/s (the FLOPs ``work`` counts over the kernel's
+    time) and the body the kernel ran: ``tensor_core`` where the
+    ``wrapper``'s ``tensor_core_launches`` rose while it was timed.  For
+    the prefill kernels (a ``wrapper`` given) also the wrapper's host
+    time and the card's kernel time a call (``host_device_us``): the
+    ms above is the larger of the two where calls run back to back."""
+    ms = plain_ms = lib_ms = bnd = flops = host_us = device_us = 0.0
     by_bytes = 0
+    tc0 = getattr(wrapper, "tensor_core_launches", 0)
     for a in cases:
         ms += cuda_ms(lambda: kern(*a))
+        if wrapper is not None:
+            h, d = host_device_us(lambda: kern(*a))
+            host_us += h
+            device_us += d
         plain_ms += cuda_ms(lambda: plain(*a))
         lib_ms += cuda_ms(lib(*a))
-        b, by = bound(*work(a), dtype)
+        nbytes, fl = work(a)
+        b, by = bound(nbytes, fl, dtype)
         bnd += b
+        flops += fl
         by_bytes += by == "bytes"
     n = len(cases)
+    body = ("tensor_core" if getattr(wrapper, "tensor_core_launches", 0)
+            > tc0 else "cuda_core")
     tm = dict(ms=ms / n, plain_ms=plain_ms / n, library_ms=lib_ms / n,
               bound_ms=bnd / n,
-              bound_by="bytes" if by_bytes * 2 >= n else "operations")
+              bound_by="bytes" if by_bytes * 2 >= n else "operations",
+              body=body, tflops=flops / (ms * 1e9))
     print(f"phase 5: {name}, bf16, mean over {n} served shape(s): kernel "
-          f"{tm['ms']:.4f} ms, bound {tm['bound_ms']:.4f} ms "
-          f"({tm['bound_by']}), plain {tm['plain_ms']:.4f} ms, "
-          f"scaled_dot_product_attention {tm['library_ms']:.4f} ms ({card})")
+          f"{tm['ms']:.4f} ms ({tm['tflops']:.1f} TFLOP/s, {body} body), "
+          f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}), plain "
+          f"{tm['plain_ms']:.4f} ms, scaled_dot_product_attention "
+          f"{tm['library_ms']:.4f} ms ({card})")
+    if wrapper is not None:
+        print(f"phase 5: {name}: host {host_us / n:.1f} µs a call, device "
+              f"{device_us / n:.1f} µs a call (profiler) ({card})")
+    if wrapper is not None and str(dtype) == "torch.bfloat16":
+        check(body == "tensor_core", f"phase 5: {name} did not run the "
+              "tensor-core body in bf16")
     return tm
 
 
@@ -1333,6 +1411,9 @@ def main() -> int:
     cross_serve_phase("3d", wh_cfg, device, kernels, card, WHISPER_PROMPTS)
 
     # -- phase 4: device vs CPU, 2 layers, f32 ---------------------------
+    # (phases 4-4d run the prefill kernels in f32 only: their counters,
+    # set to 0 here, must show no launch on the tensor-core body)
+    zero_launches(kernels)
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     cpu_params = M.init_params(cfg2, torch.Generator().manual_seed(SEED + 1),
                                "cpu")
@@ -1373,6 +1454,12 @@ def main() -> int:
     cross_vs_cpu(dataclasses.replace(vlm_cfg, n_layers=VLM_CHECK_LAYERS),
                  device)
     torch.cuda.empty_cache()
+    f32_launches = read_launches(kernels)
+    check_bodies("4-4d", f32_launches, "float32")
+    check(f32_launches["paged_prefill_attention"] > 0, "phases 4-4d: "
+          f"kernel 1 never launched: {f32_launches}")
+    print(f"phases 4-4d: launches {f32_launches}: every f32 prefill launch "
+          "on the CUDA-core body")
 
     # -- phase 5: kernel times at the served shapes (bf16) ---------------
     dtype = torch.bfloat16
@@ -1389,7 +1476,7 @@ def main() -> int:
              for g in chunks],
             paged_prefill_attention, ref.paged_prefill_attention,
             sdpa_prefill_call, lambda a: prefill_work(a[0], a[1], *a[3:]),
-            dtype, card),
+            dtype, card, paged_prefill_attention),
         "paged_decode_attention": time_kernel(
             "paged_decode_attention",
             [decode_args(cfg, g, pools, dtype, device, gen)
@@ -1431,13 +1518,14 @@ def main() -> int:
         lambda *a: ref.paged_prefill_attention(*a, causal=False),
         lambda *a: sdpa_prefill_call(*a, causal=False),
         lambda a: prefill_work(a[0], a[1], *a[3:], causal=False),
-        dtype, card)
+        dtype, card, paged_prefill_attention)
     time_kernel(f"paged_prefill_attention, {vlm_cfg.name} self-attention",
                 [prefill_args(vlm_cfg, g, vlm_pools, dtype, device, gen)
                  for g in chunks],
                 paged_prefill_attention, ref.paged_prefill_attention,
                 sdpa_prefill_call,
-                lambda a: prefill_work(a[0], a[1], *a[3:]), dtype, card)
+                lambda a: prefill_work(a[0], a[1], *a[3:]), dtype, card,
+                paged_prefill_attention)
     time_kernel(f"paged_decode_attention, {vlm_cfg.name} self-attention",
                 [decode_args(vlm_cfg, g, vlm_pools, dtype, device, gen)
                  for g in slot_cases[:1]],
@@ -1457,16 +1545,18 @@ def main() -> int:
         lambda *a: ref.paged_prefill_attention(*a, causal=False),
         lambda *a: sdpa_prefill_call(*a, causal=False),
         lambda a: prefill_work(a[0], a[1], *a[3:], causal=False),
-        dtype, card)
+        dtype, card, paged_prefill_attention)
     del vlm_pools, wh_pools
     timing["chunked_prefill_attention"] = time_kernel(
         "chunked_prefill_attention", [dense_args(cfg, dtype, device, gen)],
         chunked_prefill_attention, ref.chunked_prefill_attention,
-        sdpa_dense_call, lambda a: dense_work(*a), dtype, card)
+        sdpa_dense_call, lambda a: dense_work(*a), dtype, card,
+        chunked_prefill_attention)
     time_kernel(f"chunked_prefill_attention, {vlm_cfg.name} widths",
                 [dense_args(vlm_cfg, dtype, device, gen)],
                 chunked_prefill_attention, ref.chunked_prefill_attention,
-                sdpa_dense_call, lambda a: dense_work(*a), dtype, card)
+                sdpa_dense_call, lambda a: dense_work(*a), dtype, card,
+                chunked_prefill_attention)
     launches["paged_mla_decode_attention"] = ds_launches[
         "paged_mla_decode_attention"]
     launches["paged_cross_decode_attention"] = vlm_launches[
@@ -1482,7 +1572,8 @@ def main() -> int:
             "replaces": SOURCES[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-            "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]})
+            "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
+            "body": tm["body"], "tflops": tm["tflops"]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

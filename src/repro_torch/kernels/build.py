@@ -92,15 +92,22 @@ DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 MAX_SMEM = 232_448      # bytes of shared memory one H100 block may use
 
 
+def attend_smem(rows: int, hd: int, hd_v: int, tile_pages: int,
+                page: int) -> int:
+    """Shared-memory bytes of one block of the CUDA-core body for
+    ``rows`` query rows (mirrors ``smem_bytes`` in
+    ``csrc/paged_attention.cuh``)."""
+    tile_tok = tile_pages * page
+    return 4 * (rows * (hd + 1) + tile_tok * (hd + 1) + tile_tok * hd_v
+                + rows * (tile_tok + 1) + rows * hd_v + 3 * rows
+                + tile_pages)
+
+
 def check_smem(kernel: str, rows: int, hd: int, hd_v: int,
                tile_pages: int, page: int) -> None:
     """Raise if a block of ``rows`` query rows needs more shared memory
-    than the card gives one block (mirrors ``smem_bytes`` in
-    ``csrc/paged_attention.cuh``)."""
-    tile_tok = tile_pages * page
-    need = 4 * (rows * (hd + 1) + tile_tok * (hd + 1) + tile_tok * hd_v
-                + rows * (tile_tok + 1) + rows * hd_v + 3 * rows
-                + tile_pages)
+    than the card gives one block."""
+    need = attend_smem(rows, hd, hd_v, tile_pages, page)
     if need > MAX_SMEM:
         raise ValueError(f"{kernel}: {need} B of shared memory needed, "
                          f"{MAX_SMEM} B available (head dims too wide)")
@@ -127,6 +134,17 @@ def check_pool_rows(kernel: str, pool, width: int) -> None:
         raise ValueError(f"{kernel}: pool rows of {width} "
                          f"{pool.dtype} values at {pool.data_ptr():#x} are "
                          "not 16-byte aligned")
+
+
+def raw_stream(device) -> int:
+    """The current CUDA stream of ``device`` as a pointer, without the
+    Stream object ``torch.cuda.current_stream`` builds (several
+    microseconds a call on a busy host)."""
+    import torch
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def raise_on_error(kernel: str, err: int) -> None:

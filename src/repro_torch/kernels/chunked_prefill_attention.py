@@ -9,38 +9,46 @@ with an optional sliding window.
 The kernel (``csrc/chunked_prefill_attention.cu``) runs one block per
 (request, KV head, q tile); the rep query heads of a KV head share each
 K/V tile the block reads, and the tiles walk only the live keys.  On an
-H100 the work is bound by its operations, which this first version
-does as f32 FMAs on the CUDA cores; see the source for the design.
+H100 the work is bound by its operations.  bf16 inputs run the
+tensor-core body it shares with the paged kernel (bf16 ``wgmma``,
+f32 sums; head widths 32, 64 and 128, any other raises ``ValueError``);
+f32 inputs run the CUDA-core body, since the tensor cores would take
+them as TF32 (about three decimal digits) and the f32 runs are held
+token-identical to the CPU.  ``prefill_plan.prefill_plan`` picks the
+body and the block; see the sources for the design.
 
 On a CPU tensor the wrapper runs the plain version
 (``ref.chunked_prefill_attention``); on a CUDA tensor it launches the
 kernel or raises.  ``chunked_prefill_attention.launches`` counts kernel
-launches.  ``q_offset`` is a host int here: the reference passes the
-shared chunk start as a (1,) array, and ``ops.prefill_attention`` reads
-it to the host once, so the wrapper can check it against the cache
-without a device sync.
+launches, ``chunked_prefill_attention.tensor_core_launches`` those of
+them that ran the tensor-core body.  ``q_offset`` is a host int here:
+the reference passes the shared chunk start as a (1,) array, and
+``ops.prefill_attention`` reads it to the host once, so the wrapper can
+check it against the cache without a device sync.
 """
 from __future__ import annotations
 
 import ctypes
+from array import array
 
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.prefill_plan import (TENSOR_CORE, TILE_TOKENS,
+                                              prefill_plan, sm_count)
 
 NAME = "chunked_prefill_attention"
-ROWS_PER_BLOCK = 64     # query rows (positions x rep heads) per block
-TILE_TOKENS = 64        # keys per shared-memory K/V tile
 _FLOATS = ("torch.float32", "torch.bfloat16")
 _I32 = ("torch.int32",)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P = ctypes.c_void_p
 
 
 def _launcher():
     fn = build.load(NAME).chunked_prefill_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 12 + [ctypes.c_float, _I, _P]
-        fn.restype = _I
+        # the launch's pointers and sizes packed in one int64 array
+        fn.argtypes = [_P, ctypes.c_float, _P]
+        fn.restype = ctypes.c_int
     return fn
 
 
@@ -78,21 +86,32 @@ def chunked_prefill_attention(q, k_cache, v_cache, kv_len, q_offset: int,
             f"{NAME}: shapes q {tuple(q.shape)}, caches "
             f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, kv_len "
             f"{tuple(kv_len.shape)} do not fit")
-    rep = h // kvh
-    block_q = max(1, ROWS_PER_BLOCK // rep)
-    build.check_smem(NAME, block_q * rep, hd, hd_v, TILE_TOKENS, 1)
+    # the cache is a pool of one-token pages
+    plan = prefill_plan(q.dtype, b, sq, h, kvh, hd, hd_v, 1, skv,
+                        sm_count(dev))
     build.check_pool_rows(NAME, k_cache, hd)
     build.check_pool_rows(NAME, v_cache, hd_v)
-    out = torch.empty((b, sq, h, hd_v), dtype=q.dtype, device=dev)
-    err = _launcher()(
+    if plan.body == TENSOR_CORE:      # its Q rows are copied 16 B at a time
+        build.check_pool_rows(NAME, q, hd)
+    out = q.new_empty((b, sq, h, hd_v))
+    # split launches leave their partial states here for the combine
+    part = None if plan.splits == 1 else torch.empty(
+        plan.splits * b * sq * h * (hd_v + 2), dtype=torch.float32,
+        device=dev)
+    args = array("q", (
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), b, q_offset, sq, skv, h, kvh, hd,
-        hd_v, block_q, TILE_TOKENS, int(window), int(bool(causal)),
-        hd ** -0.5, build.DTYPE_CODES[str(q.dtype)],
-        torch.cuda.current_stream(dev).cuda_stream)
+        kv_len.data_ptr(), out.data_ptr(),
+        0 if part is None else part.data_ptr(), b, q_offset, sq, skv, h,
+        kvh, hd, hd_v, plan.block_q, TILE_TOKENS, plan.splits, int(window),
+        int(bool(causal)), int(plan.body == TENSOR_CORE)))
+    err = _launcher()(args.buffer_info()[0], hd ** -0.5,
+                      build.raw_stream(dev))
     build.raise_on_error(NAME, err)
     chunked_prefill_attention.launches += 1
+    if plan.body == TENSOR_CORE:
+        chunked_prefill_attention.tensor_core_launches += 1
     return out
 
 
 chunked_prefill_attention.launches = 0
+chunked_prefill_attention.tensor_core_launches = 0

@@ -1,9 +1,11 @@
-// Shared device body of the three GQA paged-attention kernels
+// Shared CUDA-core device body of the three GQA paged-attention kernels
 // (paged_prefill_attention.cu, paged_decode_attention.cu,
 // paged_cross_decode_attention.cu) and of the dense chunked-prefill
 // kernel (chunked_prefill_attention.cu, which views a request's cache as
 // one-token pages under the identity table), and the split combine of
-// the two decode ones.
+// the two decode ones.  The two prefill kernels run it for f32 inputs
+// only; their bf16 inputs take the tensor-core body of
+// prefill_attention_tc.cuh.
 //
 // One thread block owns R = n_q * rep query rows that all read the same
 // KV head g: n_q consecutive query positions of one segment (decode:
@@ -91,6 +93,26 @@ __device__ __forceinline__ float warp_max(float x) {
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// Raise `kernel`'s dynamic shared-memory limit to the most one block of
+// the current device may use, once per device (bit d of *done) rather
+// than on every launch.
+template <typename K>
+inline cudaError_t allow_max_smem(K* kernel, unsigned* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (*done & bit) return cudaSuccess;
+  int most = 0;
+  err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  if (err == cudaSuccess) *done |= bit;
+  return err;
 }
 
 // Bytes of dynamic shared memory one block needs.

@@ -161,12 +161,23 @@ def test_dense_prefill_refuses_what_the_kernel_does_not_take():
     (2, 64, 32, 8, 128, 128, 200, 0, [64, 20], 37),
     # MQA with a narrower V; windowed pad rows past kv_len give 0
     (2, 17, 4, 1, 64, 32, 77, 50, [67, 5], 5),
+    # hd 32 (two k16 steps), skv off the tile, a kv_len = 0 request
+    (2, 30, 4, 4, 32, 32, 70, 40, [70, 0], 0),
+    # hd 128 with hd_v 64, windowed pad rows
+    (2, 40, 8, 2, 128, 64, 130, 90, [130, 100], 16),
+    # phase 2d of chip_smoke.py: qwen2's widths in 128-row blocks (126
+    # rows at rep 7), ragged kv_len with a 0
+    (8, 512, 14, 2, 64, 64, 2048, 512,
+     [1024, 0, 1000, 777, 600, 513, 300, 1024], 0),
+    # a grid too small for the card: keys in 5 shares, then combined
+    (2, 64, 14, 2, 64, 64, 1500, 1436, [1500, 0], 0),
 ])
 def test_cuda_dense_prefill_matches_plain_version(dtype, b, sq, h, kvh, hd,
                                                   hd_v, skv, q_off, kv_len,
                                                   window):
     """On the card: kernel 5 against its plain version on the same CUDA
-    inputs, causal and not; rows without an attendable key exactly 0."""
+    inputs, causal and not; rows without an attendable key exactly 0;
+    bf16 through the tensor-core body, f32 through the CUDA-core one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -174,7 +185,8 @@ def test_cuda_dense_prefill_matches_plain_version(dtype, b, sq, h, kvh, hd,
     q, k, v = (_torch(x, dtype, dev) for x in
                _case(17, b, sq, h, kvh, hd, skv, hd_v))
     lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
-    before = chunked_prefill_attention.launches
+    before = (chunked_prefill_attention.launches,
+              chunked_prefill_attention.tensor_core_launches)
     for causal in (True, False):
         got = chunked_prefill_attention(q, k, v, lens, q_off,
                                         window=window, causal=causal)
@@ -189,4 +201,6 @@ def test_cuda_dense_prefill_matches_plain_version(dtype, b, sq, h, kvh, hd,
         assert float(got[dead].float().abs().sum()) == 0.0
         if causal:
             assert bool(dead.any())    # each case reaches an empty row
-    assert chunked_prefill_attention.launches == before + 2
+    assert chunked_prefill_attention.launches == before[0] + 2
+    assert chunked_prefill_attention.tensor_core_launches == before[1] + (
+        2 if dtype == "bfloat16" else 0)

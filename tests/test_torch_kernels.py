@@ -289,7 +289,8 @@ def test_cuda_kernels_match_plain_versions(dtype, h, kvh, hd, page):
     npages, nslots = 40, 6
     trash, maxlen = npages - 1, nslots * page
     before = (paged_prefill_attention.launches,
-              paged_decode_attention.launches)
+              paged_decode_attention.launches,
+              paged_prefill_attention.tensor_core_launches)
     for window in (0, 5):
         sq = 24
         q_off = [0, maxlen - sq, 7, 0]
@@ -317,6 +318,9 @@ def test_cuda_kernels_match_plain_versions(dtype, h, kvh, hd, page):
         assert float(got[1].float().abs().max()) == 0.0
     assert paged_prefill_attention.launches == before[0] + 2
     assert paged_decode_attention.launches == before[1] + 2
+    # bf16 runs the tensor-core body, f32 the CUDA-core one
+    assert paged_prefill_attention.tensor_core_launches == before[2] + (
+        2 if dtype == "bfloat16" else 0)
 
 
 @pytest.mark.gpu
@@ -406,3 +410,119 @@ def test_cuda_cross_kernel_matches_plain_version(dtype, b, h, kvh, hd, page,
     assert bool(torch.isfinite(got).all())
     assert float((got.float() - exp.float()).abs().max()) < tol
     assert float(got[1].float().abs().max()) == 0.0
+
+
+def _attendable(kv_len, q_off, sq, window, causal):
+    """(segs, sq) bool: whether row (segment, query) has a key it may
+    attend."""
+    q_pos = np.asarray(q_off)[:, None] + np.arange(sq)[None, :]
+    hi = np.asarray(kv_len)[:, None]
+    if causal:
+        hi = np.minimum(hi, q_pos + 1)
+    lo = np.maximum(q_pos - window + 1, 0) if window else 0
+    return np.broadcast_to(lo < hi, q_pos.shape).copy()
+
+
+def _limit(exp):
+    """chip_smoke.py's limit: f32 summation order; bf16 a rounding or two
+    of the largest plain output, at most 2e-2."""
+    if exp.dtype == torch.bfloat16:
+        return min(BF16_TOL, 2.0 ** -6 * float(exp.float().abs().max()))
+    return F32_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "segs,sq,h,kvh,hd,hd_v,page,kv_len,q_off,causal,window", [
+        # one-token pages, rep 7 (63-row blocks), kv_len off the 64-key
+        # tile, an empty segment
+        (3, 40, 14, 2, 64, 64, 1, [100, 0, 70], [60, 0, 30], True, 0),
+        # hd 32 (two k16 steps), 16 pages of 4 a tile, windowed pad rows
+        (2, 17, 4, 1, 32, 32, 4, [67, 5], [50, 0], True, 5),
+        # hd_v < hd on pages of 16, windowed, an empty segment
+        (4, 64, 8, 2, 64, 32, 16, [200, 64, 0, 150], [136, 0, 0, 100],
+         True, 37),
+        # one page a tile, hd 128 with hd_v 64
+        (2, 33, 8, 8, 128, 64, 64, [161, 33], [128, 0], True, 0),
+        # non-causal, hd_v > hd
+        (2, 100, 4, 4, 32, 128, 16, [77, 300], [0, 0], False, 0),
+        # 128-row blocks at rep 7 (126 rows), the diagonal inside them
+        (4, 512, 14, 2, 64, 64, 16, [1024, 512, 700, 0], [512, 0, 188, 0],
+         True, 0),
+        # Llama-3.2-Vision's served cross read: 512 queries over 1600 keys
+        (1, 512, 32, 8, 128, 128, 16, [1600], [0], False, 0),
+        # grids too small for the card: each block's keys in shares
+        # (splits), walked by blocks of their own and combined; with a
+        # window, an empty segment and windowed pad rows
+        (1, 64, 4, 4, 64, 64, 16, [1000], [936], True, 300),
+        (2, 64, 8, 2, 128, 128, 16, [700, 0], [636, 0], True, 0),
+        (2, 100, 4, 4, 32, 32, 4, [900, 30], [800, 0], True, 16),
+    ])
+def test_cuda_prefill_tensor_core_edges(dtype, segs, sq, h, kvh, hd, hd_v,
+                                        page, kv_len, q_off, causal, window):
+    """On the card: kernel 1 against its plain version on the edges of
+    its tensor-core body (bf16) and of its CUDA-core body (f32); rows
+    without an attendable key exactly 0; dead table slots on a scratch
+    page of garbage that must never be read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(40)
+    n_slots = -(-max(max(kv_len), max(o + sq for o in q_off)) // page) + 1
+    npages = segs * n_slots + 1
+    trash = npages - 1
+    q = torch.from_numpy(_rand(rng, (segs, sq, h, hd))).to(dev).to(tdt)
+    kp = torch.from_numpy(_rand(rng, (npages, page, kvh, hd))).to(dev)
+    vp = torch.from_numpy(_rand(rng, (npages, page, kvh, hd_v))).to(dev)
+    kp[trash], vp[trash] = 1e4, -1e4
+    kp, vp = kp.to(tdt), vp.to(tdt)
+    bt = rng.permutation(trash)[:segs * n_slots].reshape(segs, n_slots)
+    for i, n in enumerate(kv_len):
+        bt[i, -(-n // page):] = trash
+    args = (q, kp, vp, torch.from_numpy(bt.astype(np.int32)).to(dev),
+            torch.tensor(kv_len, dtype=torch.int32, device=dev),
+            torch.tensor(q_off, dtype=torch.int32, device=dev))
+    before = (paged_prefill_attention.launches,
+              paged_prefill_attention.tensor_core_launches)
+    got = paged_prefill_attention(*args, window=window, causal=causal)
+    exp = ref.paged_prefill_attention(*args, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert paged_prefill_attention.launches == before[0] + 1
+    assert paged_prefill_attention.tensor_core_launches == before[1] + (
+        dtype == "bfloat16")
+    assert got.dtype == tdt and got.shape == (segs, sq, h, hd_v)
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - exp.float()).abs().max()) <= _limit(exp)
+    dead = ~torch.from_numpy(_attendable(kv_len, q_off, sq, window,
+                                         causal)).to(dev)
+    assert float(got[dead].float().abs().sum()) == 0.0
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_refuses_bf16_widths_without_a_body():
+    """On the card: a bf16 call at a head width with no tensor-core
+    instantiation raises, naming the width, and launches nothing; f32 at
+    that width runs the CUDA-core body."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.chunked_prefill_attention import (
+        chunked_prefill_attention)
+    dev = torch.device("cuda")
+    q, kp, vp, bt, kv_len, q_off = (
+        torch.from_numpy(x).to(dev)
+        for x in _prefill_case(42, 2, 8, 4, 2, 48, 6, 16, 3))
+    bf = [t.to(torch.bfloat16) for t in (q, kp, vp)]
+    before = (paged_prefill_attention.launches,
+              chunked_prefill_attention.launches)
+    with pytest.raises(ValueError, match="hd=48"):
+        paged_prefill_attention(*bf, bt, kv_len, q_off)
+    with pytest.raises(ValueError, match="hd=48"):   # caches (2, 16, 2, 48)
+        chunked_prefill_attention(bf[0], bf[1][:2], bf[2][:2], kv_len, 0)
+    assert (paged_prefill_attention.launches,
+            chunked_prefill_attention.launches) == before
+    got = paged_prefill_attention(q, kp, vp, bt, kv_len, q_off)
+    exp = ref.paged_prefill_attention(q, kp, vp, bt, kv_len, q_off)
+    torch.cuda.synchronize()
+    assert float((got - exp).abs().max()) < F32_TOL
