@@ -13,7 +13,9 @@ Phases, in order (any failure exits non-zero):
 2. Each kernel against its plain PyTorch version on the same CUDA
    inputs, at the shapes of the served runs (every prefill chunk, the
    decode slot batches), with ragged lengths, pad segments and empty
-   slots on the scratch page, and a windowed case: the GQA kernels in
+   slots on a scratch page full of garbage, and a windowed case, plus
+   the decode body's edges (a slot spanning every split, one shorter
+   than one share, slid-out pages on the scratch page): the GQA kernels in
    f32 and bf16 at qwen2's widths (2) and at the cross models' (2a:
    Llama-3.2-Vision's hd 128 with 4 query heads a KV head, Whisper's hd
    64 with 1, each at its own served prompts), the MLA decode kernel
@@ -52,7 +54,9 @@ Phases, in order (any failure exits non-zero):
 5. Numbers: prefill and decode tokens/s of the served runs, and each
    kernel's time at the served shapes beside its bound, its plain
    version and one PyTorch library call, measured with CUDA events,
-   with its achieved TFLOP/s and the body it ran.
+   with its achieved TFLOP/s, the body it ran and the wrapper's host µs
+   a call; then, every row timed, the card's device µs a call by the
+   profiler, with the device TB/s and share of the bound.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -118,6 +122,8 @@ SOURCES = {"paged_prefill_attention":
 # request, some ending inside the chunk or before it
 DENSE = dict(sq=512, skv=2048, q_offset=512,
              kv_len=(1024, 0, 1000, 777, 600, 513, 300, 1024))
+# phase 5: the device body kernels 2 and 4 run (csrc/decode_attention.cuh)
+DECODE_BODY = "decode_attention"
 # phase 3e / 4d: the Cluster run's instances, and the request it cancels
 CLUSTER = dict(n_prefill=2, n_decode=2)
 CANCEL = dict(prompt=256, new=256, after=3)
@@ -225,6 +231,25 @@ def decode_geometry(reqs, page_size, max_seq, n_pages, max_slots,
     return dict(bt=bt, lens=lens)
 
 
+def edge_geometry(page_size, max_seq, n_pages, max_slots, window=0):
+    """A decode slot batch on the edges of the decode body's split of a
+    slot's live pages: slot 0 fills its whole table (its pages span
+    every split), slot 1 holds 5 tokens (shorter than one share), slot 2
+    1,500 (mid-page), slot 3 none (lens 0), the rest ragged.  Every table
+    slot past a slot's length, and with ``window`` every slot wholly
+    slid out of it, points at the scratch page."""
+    rng = np.random.default_rng(SEED + 7)
+    trash, width = n_pages, -(-max_seq // page_size)
+    lens = np.concatenate([[max_seq, 5, 1500, 0], rng.integers(
+        1, max_seq, max_slots - 4)]).astype(np.int32)
+    bt = rng.integers(0, n_pages, (max_slots, width)).astype(np.int32)
+    for i, n in enumerate(lens):
+        bt[i, -(-n // page_size):] = trash
+        if window:
+            bt[i, :max(0, n - window) // page_size] = trash
+    return dict(bt=bt, lens=lens)
+
+
 def cross_geometry(reqs, cross_ctx, chunk_size, page_size, n_pages,
                    max_slots, empties=(0, 3)):
     """The cross reads of the served run.  Chunks: the prefill engine's
@@ -273,11 +298,17 @@ def cross_geometry(reqs, cross_ctx, chunk_size, page_size, n_pages,
 # ---------------------------------------------------------------------------
 # kernel inputs, bounds and library yardsticks
 # ---------------------------------------------------------------------------
-def random_pools(cfg, n_pages, page, dtype, device, gen):
+def random_pools(cfg, n_pages, page, dtype, device, gen, garbage=False):
+    """K and V pools of ``n_pages`` random pages and the scratch page
+    (index n_pages); with ``garbage`` the scratch page holds 1e4 / -1e4,
+    which no kernel may read."""
     import torch
     shape = (n_pages + 1, page, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return (torch.randn(shape, generator=gen, device=device).to(dtype),
-            torch.randn(shape, generator=gen, device=device).to(dtype))
+    pools = (torch.randn(shape, generator=gen, device=device),
+             torch.randn(shape, generator=gen, device=device))
+    if garbage:
+        pools[0][n_pages], pools[1][n_pages] = 1e4, -1e4
+    return tuple(p.to(dtype) for p in pools)
 
 
 def prefill_args(cfg, g, pools, dtype, device, gen):
@@ -512,12 +543,10 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def host_device_us(fn, reps: int = 20):
-    """(host µs a call, device µs a call) of ``fn``: the host's time to
-    issue ``reps`` calls without waiting for the card, and the card's
-    kernel time by the profiler (every launch of a call summed)."""
+def host_us(fn, reps: int = 20) -> float:
+    """The host's µs a call to issue ``reps`` calls of ``fn`` without
+    waiting for the card."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -525,12 +554,22 @@ def host_device_us(fn, reps: int = 20):
         fn()
     host = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
+    return host
+
+
+def device_us(fn, reps: int = 20) -> float:
+    """The card's kernel µs a call of ``fn`` by the profiler (every launch
+    of a call summed).  A profiler session can slow later launches on the
+    host, so host times are taken before the first one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    device = sum(e.self_device_time_total for e in prof.key_averages())
-    return host, device / reps
+    return sum(e.self_device_time_total for e in prof.key_averages()) / reps
 
 
 # ---------------------------------------------------------------------------
@@ -538,9 +577,10 @@ def host_device_us(fn, reps: int = 20):
 # ---------------------------------------------------------------------------
 def check_kernels(cfg, reqs, device, tag="2"):
     """Phase 2 (2a): kernels 1 and 2 vs their plain versions on the
-    served shapes at ``cfg``'s attention widths.  Returns ({kernel: max
-    abs error in bf16, the served dtype}, the prefill chunk geometries,
-    the decode slot geometries)."""
+    served shapes at ``cfg``'s attention widths, the scratch page full of
+    garbage; kernel 2 also on ``edge_geometry``'s batch for each window.
+    Returns ({kernel: max abs error in bf16, the served dtype}, the
+    prefill chunk geometries, the decode slot geometries)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_decode_attention import (
@@ -555,9 +595,11 @@ def check_kernels(cfg, reqs, device, tag="2"):
     pre, dec = "paged_prefill_attention", "paged_decode_attention"
     for dtype in (torch.float32, torch.bfloat16):
         pools = random_pools(cfg, SERVE["n_pages"], SERVE["page_size"],
-                             dtype, device, gen)
+                             dtype, device, gen, garbage=True)
         worst = {}
         for window in (0, WINDOW):
+            edge = edge_geometry(max_slots=SERVE["max_slots"],
+                                 window=window, **kw)
             for g in chunks:
                 args = prefill_args(cfg, g, pools, dtype, device, gen)
                 got = paged_prefill_attention(*args, window=window)
@@ -565,23 +607,25 @@ def check_kernels(cfg, reqs, device, tag="2"):
                 torch.cuda.synchronize()
                 check(bool(torch.isfinite(got).all()), "prefill: non-finite")
                 compare(pre, got, exp, worst)
-            for g in slot_cases:
+            for g in slot_cases + [edge]:
                 args = decode_args(cfg, g, pools, dtype, device, gen)
                 got = paged_decode_attention(*args, window=window)
                 exp = ref.paged_decode_attention(*args, window=window)
                 torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()), "decode: non-finite")
                 empty = g["lens"] == 0
                 check(float(got[torch.from_numpy(empty).to(device)]
                             .float().abs().sum()) == 0.0,
                       "decode: an empty slot did not give zeros")
                 compare(dec, got, exp, worst)
         for name, (err, share) in worst.items():
-            n = len(chunks) if name == pre else len(slot_cases)
+            n = (f"{len(chunks)} served shapes" if name == pre else
+                 f"{len(slot_cases)} served shapes + the edge batch")
             print(f"phase {tag}: {name} vs plain, {cfg.name}, {dtype}, "
                   f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
-                  f"{cfg.resolved_head_dim}, {n} served shapes x window "
-                  f"0/{WINDOW}: max abs err {err:.3e}, at most {share:.3f} "
-                  "of a case's limit (limit())")
+                  f"{cfg.resolved_head_dim}, {n} x window 0/{WINDOW}: max "
+                  f"abs err {err:.3e}, at most {share:.3f} of a case's "
+                  "limit (limit())")
     return {k: v[0] for k, v in worst.items()}, chunks, slot_cases
 
 
@@ -633,7 +677,11 @@ def check_cross_kernels(cfg, reqs, device):
     served shapes, f32 and bf16: the cross decode kernel on the decode
     slot batch (full, and with 3 empty slots, which must give exactly 0)
     and the prefill kernel with causal=False on every chunk's cross read
-    (kv_len = enc_ctx, q_offset 0, pad segments at kv_len 0).  Returns
+    (kv_len = enc_ctx, q_offset 0, pad segments at kv_len 0), the
+    scratch page full of garbage; the cross decode kernel also on an edge
+    batch: the full one with its last live slot cut to 5 tokens (shorter
+    than one share, its other table slots on the scratch page) and slot 1
+    empty.  Returns
     ({kernel: max abs error in bf16}, the cross chunk geometries, the
     cross slot geometries)."""
     import torch
@@ -650,7 +698,7 @@ def check_cross_kernels(cfg, reqs, device):
                 "paged_cross_decode_attention")
     for dtype in (torch.float32, torch.bfloat16):
         pools = random_pools(cfg, CROSS_PAGES, SERVE["page_size"], dtype,
-                             device, gen)
+                             device, gen, garbage=True)
         worst = {}
         for g in chunks:
             args = prefill_args(cfg, g, pools, dtype, device, gen)
@@ -663,7 +711,12 @@ def check_cross_kernels(cfg, reqs, device):
             check(float(got[pad].float().abs().sum()) == 0.0,
                   "cross prefill: a pad segment did not give zeros")
             compare(pre, got, exp, worst)
-        for g in slot_cases:
+        edge = {k: v.copy() for k, v in slot_cases[0].items()}
+        edge["lens"][1] = 0
+        edge["bt"][1] = CROSS_PAGES
+        edge["lens"][-1] = 5
+        edge["bt"][-1, 1:] = CROSS_PAGES
+        for g in slot_cases + [edge]:
             args = decode_args(cfg, g, pools, dtype, device, gen)
             got = paged_cross_decode_attention(*args)
             exp = ref.paged_cross_decode_attention(*args)
@@ -675,11 +728,12 @@ def check_cross_kernels(cfg, reqs, device):
                   "cross decode: an empty slot did not give zeros")
             compare(dec, got, exp, worst)
         for name, (err, share) in worst.items():
-            n = len(chunks) if name == pre else len(slot_cases)
+            n = (f"{len(chunks)} served shapes" if name == pre else
+                 f"{len(slot_cases)} served shapes + the edge batch")
             print(f"phase 2c: {name} vs plain, {cfg.name}, {dtype}, "
-                  f"{cfg.cross_ctx} encoder tokens, {n} served shapes: max "
-                  f"abs err {err:.3e}, at most {share:.3f} of a case's "
-                  "limit (limit())")
+                  f"{cfg.cross_ctx} encoder tokens, {n}: max abs err "
+                  f"{err:.3e}, at most {share:.3f} of a case's limit "
+                  "(limit())")
     return {k: v[0] for k, v in worst.items()}, chunks, slot_cases
 
 
@@ -1227,51 +1281,68 @@ def cluster_phase(cfg, params, device, kernels, card):
     return launches
 
 
+# phase 5's rows, timed on the card by profile_rows once every row's
+# CUDA-event and host times are taken
+TIMED = []
+
+
 def time_kernel(name, cases, kern, plain, lib, work, dtype, card,
-                wrapper=None):
+                wrapper=None, body="cuda_core"):
     """Phase 5: mean ms per launch over ``cases`` (tuples of arguments)
-    of the kernel, its plain version and the library call, the bound,
-    the achieved TFLOP/s (the FLOPs ``work`` counts over the kernel's
-    time) and the body the kernel ran: ``tensor_core`` where the
-    ``wrapper``'s ``tensor_core_launches`` rose while it was timed.  For
-    the prefill kernels (a ``wrapper`` given) also the wrapper's host
-    time and the card's kernel time a call (``host_device_us``): the
-    ms above is the larger of the two where calls run back to back."""
-    ms = plain_ms = lib_ms = bnd = flops = host_us = device_us = 0.0
+    of the kernel, its plain version and the library call (CUDA events),
+    the bound, the achieved TFLOP/s (the FLOPs ``work`` counts over the
+    kernel's time), the wrapper's host µs a call (``host_us``: the ms is
+    the larger of host and device time where calls run back to back),
+    and the body the kernel ran: ``body``, or for a prefill kernel (its
+    ``wrapper`` given) ``tensor_core`` where the wrapper's
+    ``tensor_core_launches`` rose while it was timed, which bf16
+    requires.  The row joins TIMED for its device time."""
+    ms = plain_ms = lib_ms = bnd = flops = nbytes = host = 0.0
     by_bytes = 0
     tc0 = getattr(wrapper, "tensor_core_launches", 0)
     for a in cases:
         ms += cuda_ms(lambda: kern(*a))
-        if wrapper is not None:
-            h, d = host_device_us(lambda: kern(*a))
-            host_us += h
-            device_us += d
+        host += host_us(lambda: kern(*a))
         plain_ms += cuda_ms(lambda: plain(*a))
         lib_ms += cuda_ms(lib(*a))
-        nbytes, fl = work(a)
-        b, by = bound(nbytes, fl, dtype)
+        nb, fl = work(a)
+        b, by = bound(nb, fl, dtype)
         bnd += b
         flops += fl
+        nbytes += nb
         by_bytes += by == "bytes"
     n = len(cases)
-    body = ("tensor_core" if getattr(wrapper, "tensor_core_launches", 0)
-            > tc0 else "cuda_core")
+    if wrapper is not None:
+        body = ("tensor_core" if wrapper.tensor_core_launches > tc0
+                else "cuda_core")
     tm = dict(ms=ms / n, plain_ms=plain_ms / n, library_ms=lib_ms / n,
               bound_ms=bnd / n,
               bound_by="bytes" if by_bytes * 2 >= n else "operations",
-              body=body, tflops=flops / (ms * 1e9))
+              body=body, tflops=flops / (ms * 1e9), host_us=host / n)
     print(f"phase 5: {name}, bf16, mean over {n} served shape(s): kernel "
           f"{tm['ms']:.4f} ms ({tm['tflops']:.1f} TFLOP/s, {body} body), "
           f"bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}), plain "
           f"{tm['plain_ms']:.4f} ms, scaled_dot_product_attention "
-          f"{tm['library_ms']:.4f} ms ({card})")
-    if wrapper is not None:
-        print(f"phase 5: {name}: host {host_us / n:.1f} µs a call, device "
-              f"{device_us / n:.1f} µs a call (profiler) ({card})")
+          f"{tm['library_ms']:.4f} ms; host {tm['host_us']:.1f} µs a "
+          f"call ({card})")
     if wrapper is not None and str(dtype) == "torch.bfloat16":
         check(body == "tensor_core", f"phase 5: {name} did not run the "
               "tensor-core body in bf16")
+    TIMED.append((name, tm, cases, kern, nbytes / n))
     return tm
+
+
+def profile_rows(card):
+    """Phase 5's second pass: each TIMED row's kernel µs a call on the
+    card (``device_us``), its device TB/s and share of its bound."""
+    for name, tm, cases, kern, nbytes in TIMED:
+        dev = sum(device_us(lambda: kern(*a)) for a in cases) / len(cases)
+        check(dev > 0, f"phase 5: {name}: the profiler saw no kernel")
+        tm["device_us"] = dev
+        print(f"phase 5: {name}: device {dev:.1f} µs a call (profiler), "
+              f"{nbytes / (dev * 1e6):.3f} TB/s, "
+              f"{100 * tm['bound_ms'] * 1e3 / dev:.1f}% of the bound; "
+              f"host {tm['host_us']:.1f} µs ({card})")
 
 
 def main() -> int:
@@ -1483,7 +1554,7 @@ def main() -> int:
              for g in slot_cases[:1]],
             paged_decode_attention, ref.paged_decode_attention,
             sdpa_decode_call, lambda a: decode_work(a[0], a[1], *a[3:]),
-            dtype, card),
+            dtype, card, body=DECODE_BODY),
         "paged_mla_decode_attention": time_kernel(
             "paged_mla_decode_attention",
             [mla_args(ds_cfg, g, lat, device, gen) for g in mla_slots[:1]],
@@ -1503,13 +1574,13 @@ def main() -> int:
         [decode_args(vlm_cfg, g, vlm_pools, dtype, device, gen)
          for g in v_slots[:1]],
         paged_cross_decode_attention, ref.paged_cross_decode_attention,
-        sdpa_decode_call, dec_work, dtype, card)
+        sdpa_decode_call, dec_work, dtype, card, body=DECODE_BODY)
     time_kernel(f"paged_cross_decode_attention, {wh_cfg.name}",
                 [decode_args(wh_cfg, g, wh_pools, dtype, device, gen)
                  for g in w_slots[:1]],
                 paged_cross_decode_attention,
                 ref.paged_cross_decode_attention, sdpa_decode_call,
-                dec_work, dtype, card)
+                dec_work, dtype, card, body=DECODE_BODY)
     time_kernel(
         f"paged_prefill_attention causal=False, {vlm_cfg.name} cross read",
         [prefill_args(vlm_cfg, g, vlm_pools, dtype, device, gen)
@@ -1530,13 +1601,13 @@ def main() -> int:
                 [decode_args(vlm_cfg, g, vlm_pools, dtype, device, gen)
                  for g in slot_cases[:1]],
                 paged_decode_attention, ref.paged_decode_attention,
-                sdpa_decode_call, dec_work, dtype, card)
+                sdpa_decode_call, dec_work, dtype, card, body=DECODE_BODY)
     _, wh_slots = self_geo[wh_cfg.name]
     time_kernel(f"paged_decode_attention, {wh_cfg.name} self-attention",
                 [decode_args(wh_cfg, g, wh_pools, dtype, device, gen)
                  for g in wh_slots[:1]],
                 paged_decode_attention, ref.paged_decode_attention,
-                sdpa_decode_call, dec_work, dtype, card)
+                sdpa_decode_call, dec_work, dtype, card, body=DECODE_BODY)
     time_kernel(
         f"paged_prefill_attention causal=False, {wh_cfg.name} cross read",
         [prefill_args(wh_cfg, g, wh_pools, dtype, device, gen)
@@ -1557,6 +1628,7 @@ def main() -> int:
                 chunked_prefill_attention, ref.chunked_prefill_attention,
                 sdpa_dense_call, lambda a: dense_work(*a), dtype, card,
                 chunked_prefill_attention)
+    profile_rows(card)
     launches["paged_mla_decode_attention"] = ds_launches[
         "paged_mla_decode_attention"]
     launches["paged_cross_decode_attention"] = vlm_launches[
@@ -1573,7 +1645,8 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
-            "body": tm["body"], "tflops": tm["tflops"]})
+            "body": tm["body"], "tflops": tm["tflops"],
+            "host_us": tm["host_us"], "device_us": tm["device_us"]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

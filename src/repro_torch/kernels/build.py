@@ -20,8 +20,11 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
+# -split-compile=0: optimise a library's kernels on every core (the
+# decode libraries hold 64 instantiations each)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0"]
 NAMES = ("paged_prefill_attention", "paged_decode_attention",
          "paged_mla_decode_attention", "paged_cross_decode_attention",
          "chunked_prefill_attention")
@@ -101,16 +104,6 @@ def attend_smem(rows: int, hd: int, hd_v: int, tile_pages: int,
     return 4 * (rows * (hd + 1) + tile_tok * (hd + 1) + tile_tok * hd_v
                 + rows * (tile_tok + 1) + rows * hd_v + 3 * rows
                 + tile_pages)
-
-
-def check_smem(kernel: str, rows: int, hd: int, hd_v: int,
-               tile_pages: int, page: int) -> None:
-    """Raise if a block of ``rows`` query rows needs more shared memory
-    than the card gives one block."""
-    need = attend_smem(rows, hd, hd_v, tile_pages, page)
-    if need > MAX_SMEM:
-        raise ValueError(f"{kernel}: {need} B of shared memory needed, "
-                         f"{MAX_SMEM} B available (head dims too wide)")
 
 
 def check_cuda(name: str, t, *, ndim: int, dtypes, device) -> None:

@@ -58,10 +58,9 @@ __global__ void __launch_bounds__(THREADS)
   paged_attn::attend<4, float>(q + row0 * h * hd,
                                k_cache + (long long)bi * skv * kvh * hd,
                                v_cache + (long long)bi * skv * kvh * hd_v,
-                               nullptr, out + row0 * h * hd_v, nullptr, n_q,
+                               nullptr, out + row0 * h * hd_v, n_q,
                                q_offset + q0, kv_len[bi], causal != 0, window,
-                               h, kvh, g, hd, hd_v, 1, skv, 0, skv, tile_tok,
-                               scale);
+                               h, kvh, g, hd, hd_v, 1, skv, tile_tok, scale);
 }
 
 template <int HD, int HD_V>

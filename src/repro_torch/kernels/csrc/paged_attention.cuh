@@ -1,17 +1,18 @@
-// Shared CUDA-core device body of the three GQA paged-attention kernels
-// (paged_prefill_attention.cu, paged_decode_attention.cu,
-// paged_cross_decode_attention.cu) and of the dense chunked-prefill
-// kernel (chunked_prefill_attention.cu, which views a request's cache as
-// one-token pages under the identity table), and the split combine of
-// the two decode ones.  The two prefill kernels run it for f32 inputs
-// only; their bf16 inputs take the tensor-core body of
-// prefill_attention_tc.cuh.
+// The CUDA-core device body `attend` of the two prefill-attention
+// kernels for f32 inputs: the paged one (paged_prefill_attention.cu) and
+// the dense chunked-prefill one (chunked_prefill_attention.cu, which
+// views a request's cache as one-token pages under the identity table).
+// Their bf16 inputs take the tensor-core body of prefill_attention_tc.cuh.
+// It no longer serves decode: the two decode kernels
+// (paged_decode_attention.cu, paged_cross_decode_attention.cu) run
+// decode_attention.cuh in both dtypes.  Also the small device helpers
+// those bodies share (loads, cp.async, exp2, warp reductions, the
+// shared-memory opt-in).
 //
 // One thread block owns R = n_q * rep query rows that all read the same
-// KV head g: n_q consecutive query positions of one segment (decode:
-// n_q = 1) times the rep query heads of that KV head.  It walks the
-// live block-table slots of its segment (or of its share of them, when
-// the caller splits the slots across blocks) in order, a tile of
+// KV head g: n_q consecutive query positions of one segment times the
+// rep query heads of that KV head.  It walks the
+// live block-table slots of its segment in order, a tile of
 // `tile_pages` pages at a time, and keeps an online softmax in f32:
 //
 //   page ids   the tile's block-table entries -> shared memory
@@ -43,6 +44,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace paged_attn {
 
@@ -85,6 +87,27 @@ __device__ __forceinline__ void unpack(const uint4& r, float* f,
   }
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; with valid false, 16 zero bytes (src is not
+// read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 2^x in one MUFU.EX2 (exp2f adds a scaling for denormal results; here
+// those are weights below 2^-126, flushed to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -96,8 +119,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Raise `kernel`'s dynamic shared-memory limit to the most one block of
-// the current device may use, once per device (bit d of *done) rather
-// than on every launch.
+// the current device may use beside the kernel's static shared memory,
+// once per device (bit d of *done) rather than on every launch.
 template <typename K>
 inline cudaError_t allow_max_smem(K* kernel, unsigned* done) {
   int dev = 0;
@@ -108,9 +131,12 @@ inline cudaError_t allow_max_smem(K* kernel, unsigned* done) {
   int most = 0;
   err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        most - (int)attr.sharedSizeBytes);
   if (err == cudaSuccess) *done |= bit;
   return err;
 }
@@ -174,24 +200,16 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ pool,
 // q_pos0 is the absolute position of the block's first query; n_q of its
 // query positions exist (the ragged edge of a segment is not computed
 // and not written).  bt is the segment's block-table row, or nullptr for
-// the identity table (slot j holds page j).  The block reads only the
-// live slots inside [slot_begin, slot_end).
-//
-// RT is the rows per thread of the score and PV blocks: 4 where a block
-// holds many rows (prefill), 1 for decode's rep rows.
-// With part == nullptr the block writes its normalised output.  Else it
-// writes its partial state for a later combine instead: part[0, rows) =
-// m, part[rows, 2 rows) = l, then rows * hd_v unnormalised accumulators.
+// the identity table (slot j holds page j).  RT is the rows per thread of
+// the score and PV blocks.  The block writes its normalised output.
 template <int RT, typename T>
 __device__ void attend(const T* __restrict__ q_base,
                        const T* __restrict__ k_pool,
                        const T* __restrict__ v_pool,
                        const int* __restrict__ bt, T* __restrict__ out_base,
-                       float* __restrict__ part, int n_q, int q_pos0,
-                       int kv_len, bool causal, int window, int h, int kvh,
-                       int g, int hd, int hd_v, int page, int n_slots,
-                       int slot_begin, int slot_end, int tile_pages,
-                       float scale) {
+                       int n_q, int q_pos0, int kv_len, bool causal,
+                       int window, int h, int kvh, int g, int hd, int hd_v,
+                       int page, int n_slots, int tile_pages, float scale) {
   const int rep = h / kvh;
   const int rows = n_q * rep;
   const int tile_tok = tile_pages * page;
@@ -237,8 +255,6 @@ __device__ void attend(const T* __restrict__ q_base,
     const int x = q_min - window + 1;
     p_lo = x > 0 ? x / page : 0;
   }
-  p_lo = max(p_lo, slot_begin);
-  p_hi = min(p_hi, slot_end);
   __syncthreads();
 
   for (int p0 = p_lo; p0 < p_hi; p0 += tile_pages) {
@@ -354,52 +370,12 @@ __device__ void attend(const T* __restrict__ q_base,
     __syncthreads();
   }
 
-  if (part != nullptr) {
-    for (int i = tid; i < rows; i += blockDim.x) {
-      part[i] = m_s[i];
-      part[rows + i] = l_s[i];
-    }
-    for (int i = tid; i < rows * hd_v; i += blockDim.x)
-      part[2 * rows + i] = acc_s[i];
-    return;
-  }
   for (int i = tid; i < rows * hd_v; i += blockDim.x) {
     const int row = i / hd_v, d = i % hd_v;
     const int qi = row / rep, r = row % rep;
     const float o =
         m_s[row] == NEG_INF ? 0.f : acc_s[i] / fmaxf(l_s[row], 1e-20f);
     store_f(out_base, ((long long)qi * h + g * rep + r) * hd_v + d, o);
-  }
-}
-
-// Second launch of the split decode kernels (paged_decode_attention.cu,
-// paged_cross_decode_attention.cu), grid (slots, KV heads): each split of
-// a (slot, KV head) wrote its partial state for the rep rows at
-// part[((slot * kvh + g) * splits + split) * rep * (hd_v + 2)] as
-// attend() lays it out (m, l, then rep * hd_v unnormalised
-// accumulators).  Rescale each split by exp(m_split - max m), sum and
-// normalise; a row whose every split saw no key writes 0.
-template <typename T>
-__global__ void combine_splits(const float* __restrict__ part,
-                               T* __restrict__ out, int h, int kvh,
-                               int hd_v, int splits) {
-  const int bi = blockIdx.x, g = blockIdx.y;
-  const int rep = h / kvh;
-  const int stride = rep * (hd_v + 2);
-  const float* base = part + (long long)(bi * kvh + g) * splits * stride;
-  for (int i = threadIdx.x; i < rep * hd_v; i += blockDim.x) {
-    const int r = i / hd_v;
-    float m = NEG_INF;
-    for (int s = 0; s < splits; ++s) m = fmaxf(m, base[s * stride + r]);
-    float l = 0.f, a = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const float* ps = base + s * stride;
-      const float w = expf(ps[r] - m);
-      l = fmaf(ps[rep + r], w, l);
-      a = fmaf(ps[2 * rep + i], w, a);
-    }
-    const float o = m == NEG_INF ? 0.f : a / fmaxf(l, 1e-20f);
-    store_f(out, ((long long)bi * h + g * rep) * hd_v + i, o);
   }
 }
 

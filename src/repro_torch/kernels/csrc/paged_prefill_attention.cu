@@ -50,10 +50,10 @@ __global__ void __launch_bounds__(THREADS)
   const long long row0 = (long long)seg * sq + q0;
   paged_attn::attend<4, float>(q + row0 * h * hd, k_pool, v_pool,
                                block_table + (long long)seg * n_slots,
-                               out + row0 * h * hd_v, nullptr, n_q,
+                               out + row0 * h * hd_v, n_q,
                                q_offset[seg] + q0, kv_len[seg], causal != 0,
-                               window, h, kvh, g, hd, hd_v, page, n_slots, 0,
-                               n_slots, tile_pages, scale);
+                               window, h, kvh, g, hd, hd_v, page, n_slots,
+                               tile_pages, scale);
 }
 
 template <int HD, int HD_V>

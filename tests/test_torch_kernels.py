@@ -14,8 +14,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_plan import decode_plan, share_keys
 from repro_torch.kernels.paged_cross_decode_attention import (
-    paged_cross_decode_attention, slots_per_split)
+    paged_cross_decode_attention)
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention)
 from repro_torch.kernels.paged_mla_decode_attention import (
@@ -253,10 +254,19 @@ def test_cross_wrapper_refuses_unsupported_devices_and_splits_evenly():
     with pytest.raises(ValueError):
         paged_cross_decode_attention(q, q, q, q, q)
     # Llama-3.2-Vision's 8 slots x 8 KV heads x 100 cross slots, and
-    # Whisper's 8 x 6 x 94, fill 132 SMs at least twice over
-    assert slots_per_split(8, 8, 100, 132) == 20
-    assert slots_per_split(8, 6, 94, 132) == 16
-    assert slots_per_split(1, 1, 3, 132) == 1
+    # Whisper's 8 x 6 x 94, fill 132 SMs at least twice over; a full
+    # cross table splits evenly into shares of at most 17 and 12 pages
+    for (b, h, kvh, hd, n_slots), most in (((8, 32, 8, 128, 100), 17),
+                                           ((8, 6, 6, 64, 94), 12),
+                                           ((1, 2, 1, 64, 3), 1)):
+        splits = decode_plan(torch.bfloat16, b, h, kvh, hd, hd, 16,
+                             n_slots, 132).splits
+        pages = [-(-e // 16) - s // 16 for s, e, _, _ in (
+            share_keys(16 * n_slots, 0, 16, n_slots, i, splits)
+            for i in range(splits))]
+        assert b * kvh * splits >= min(264, b * kvh * n_slots)
+        assert max(pages) == most and sum(pages) == n_slots
+        assert max(pages) - min(pages) <= 1
 
 
 def test_mla_wrapper_refuses_unsupported_devices_and_shapes():
@@ -269,6 +279,39 @@ def test_mla_wrapper_refuses_unsupported_devices_and_shapes():
         head_group(128, 512, 64, 128)
 
 
+def _decode_edges(h, kvh, hd, page, tdt, window):
+    """Kernel 2 against its plain version on the decode body's edges, on
+    the card: 40-slot tables over a pool whose scratch page holds
+    garbage (1e4 / -1e4): a slot whose live pages span every split, one
+    shorter than one share, an empty slot, one ending mid-page; every
+    table slot past a slot's length or slid out of ``window`` on the
+    scratch page.  Empty slots exactly 0."""
+    dev = torch.device("cuda")
+    b, n_slots = 4, 40
+    npages = b * n_slots + 1
+    trash = npages - 1
+    rng = np.random.default_rng(17)
+    q = torch.from_numpy(_rand(rng, (b, h, hd))).to(dev).to(tdt)
+    kp, vp = (torch.from_numpy(_rand(rng, (npages, page, kvh, hd))).to(dev)
+              for _ in range(2))
+    kp[trash], vp[trash] = 1e4, -1e4
+    kp, vp = kp.to(tdt), vp.to(tdt)
+    lens = [n_slots * page, min(3, page), 0, n_slots * page // 2 + 1]
+    bt = rng.permutation(trash)[:b * n_slots].reshape(b, n_slots)
+    for i, n in enumerate(lens):
+        bt[i, -(-n // page):] = trash
+        if window:
+            bt[i, :max(0, n - window) // page] = trash
+    args = (q, kp, vp, torch.from_numpy(bt.astype(np.int32)).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+    got = paged_decode_attention(*args, window=window)
+    exp = ref.paged_decode_attention(*args, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == tdt and bool(torch.isfinite(got).all())
+    assert float((got.float() - exp.float()).abs().max()) <= _limit(exp)
+    assert float(got[2].float().abs().max()) == 0.0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("h,kvh,hd,page", [
@@ -276,11 +319,17 @@ def test_mla_wrapper_refuses_unsupported_devices_and_shapes():
     (4, 4, 32, 4),        # rep 1, small pages
     (4, 2, 128, 64),      # wide heads, one page per tile
     (32, 8, 128, 16),     # Llama-3.2-Vision self-attention: hd 128, rep 4
+    (8, 8, 256, 16),      # hd 256, rep 1 (decode only: no prefill body)
+    (24, 8, 64, 1),       # rep 3, one-token pages
+    (16, 2, 128, 64),     # rep 8, pages of 64
+    (8, 1, 256, 4),       # rep 8 at hd 256 (decode only)
 ])
 def test_cuda_kernels_match_plain_versions(dtype, h, kvh, hd, page):
     """On the card: each CUDA kernel against its plain version on the
     same CUDA inputs (ragged kv_len, pad rows, pad segments and slots on
-    the scratch page, lens=0 slots, a windowed case)."""
+    the scratch page, lens=0 slots, a windowed case), and kernel 2 on
+    its body's edges (``_decode_edges``).  The prefill kernel takes head
+    widths up to 128 only."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     tdt = getattr(torch, dtype)
@@ -288,10 +337,12 @@ def test_cuda_kernels_match_plain_versions(dtype, h, kvh, hd, page):
     dev = torch.device("cuda")
     npages, nslots = 40, 6
     trash, maxlen = npages - 1, nslots * page
+    prefill = hd <= 128
     before = (paged_prefill_attention.launches,
               paged_decode_attention.launches,
               paged_prefill_attention.tensor_core_launches)
     for window in (0, 5):
+        _decode_edges(h, kvh, hd, page, tdt, window)
         sq = 24
         q_off = [0, maxlen - sq, 7, 0]
         kv_len = [sq, maxlen, 20, 0]        # segment 2 has pad rows
@@ -301,11 +352,12 @@ def test_cuda_kernels_match_plain_versions(dtype, h, kvh, hd, page):
         bt[3] = trash
         args = [torch.from_numpy(x).to(dev).to(tdt) for x in (q, kp, vp)]
         args += [torch.from_numpy(x).to(dev) for x in (bt, kv_len, q_off)]
-        got = paged_prefill_attention(*args, window=window)
-        exp = ref.paged_prefill_attention(*args, window=window)
-        torch.cuda.synchronize()
-        assert float((got.float() - exp.float()).abs().max()) < tol
-        assert float(got[3].float().abs().max()) == 0.0
+        if prefill:
+            got = paged_prefill_attention(*args, window=window)
+            exp = ref.paged_prefill_attention(*args, window=window)
+            torch.cuda.synchronize()
+            assert float((got.float() - exp.float()).abs().max()) < tol
+            assert float(got[3].float().abs().max()) == 0.0
         q, kp, vp, bt, lens = _decode_case(8, 4, h, kvh, hd, npages, page,
                                            nslots, lens=[1, 0, maxlen, 37])
         bt[1] = trash
@@ -316,11 +368,11 @@ def test_cuda_kernels_match_plain_versions(dtype, h, kvh, hd, page):
         torch.cuda.synchronize()
         assert float((got.float() - exp.float()).abs().max()) < tol
         assert float(got[1].float().abs().max()) == 0.0
-    assert paged_prefill_attention.launches == before[0] + 2
-    assert paged_decode_attention.launches == before[1] + 2
+    assert paged_prefill_attention.launches == before[0] + 2 * prefill
+    assert paged_decode_attention.launches == before[1] + 4
     # bf16 runs the tensor-core body, f32 the CUDA-core one
     assert paged_prefill_attention.tensor_core_launches == before[2] + (
-        2 if dtype == "bfloat16" else 0)
+        2 * prefill if dtype == "bfloat16" else 0)
 
 
 @pytest.mark.gpu
@@ -375,12 +427,16 @@ def test_cuda_mla_kernel_matches_plain_version(q_dtype, pool_dtype, h, lora,
     (8, 32, 8, 128, 16, 1600),   # Llama-3.2-Vision at full width
     (8, 6, 6, 64, 16, 1500),     # Whisper-tiny: partly filled last page
     (3, 4, 2, 32, 4, 13),        # the smoke shapes, ctx 13
+    (4, 8, 8, 256, 16, 300),     # hd 256, rep 1
+    (5, 24, 8, 64, 1, 200),      # rep 3, one-token pages
+    (3, 16, 2, 128, 64, 1000),   # rep 8, pages of 64
 ])
 def test_cuda_cross_kernel_matches_plain_version(dtype, b, h, kvh, hd, page,
                                                  enc_len):
     """On the card: the paged cross decode kernel against its plain
     version on the same CUDA inputs: every live slot at enc_len through
-    its own cross table, pad slots and an empty slot (enc_len 0) on a
+    its own cross table (its pages spanning every split), the last one
+    shorter than one share, pad slots and an empty slot (enc_len 0) on a
     scratch page of garbage."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -399,8 +455,10 @@ def test_cuda_cross_kernel_matches_plain_version(dtype, b, h, kvh, hd, page,
     bt[:, -1] = trash
     bt[1] = trash
     bt = torch.from_numpy(bt.astype(np.int32)).to(dev)
+    short = min(enc_len, page + 1)             # at most two pages
+    bt[-1, -(-short // page):] = trash
     lens = torch.full((b,), enc_len, dtype=torch.int32, device=dev)
-    lens[1] = 0
+    lens[1], lens[-1] = 0, short
     before = paged_cross_decode_attention.launches
     got = paged_cross_decode_attention(q, kp, vp, bt, lens)
     exp = ref.paged_cross_decode_attention(q, kp, vp, bt, lens)
@@ -409,6 +467,7 @@ def test_cuda_cross_kernel_matches_plain_version(dtype, b, h, kvh, hd, page,
     assert got.dtype == tdt
     assert bool(torch.isfinite(got).all())
     assert float((got.float() - exp.float()).abs().max()) < tol
+    assert float((got.float() - exp.float()).abs().max()) <= _limit(exp)
     assert float(got[1].float().abs().max()) == 0.0
 
 
