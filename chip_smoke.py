@@ -19,8 +19,10 @@ Phases, in order (any failure exits non-zero):
    f32 and bf16 at qwen2's widths (2) and at the cross models' (2a:
    Llama-3.2-Vision's hd 128 with 4 query heads a KV head, Whisper's hd
    64 with 1, each at its own served prompts), the MLA decode kernel
-   with f32 queries against f32 and bf16 latent pools (2b), and the
-   cross reads at Llama-3.2-Vision's and Whisper's served shapes (2c):
+   with f32 queries against f32 and bf16 latent pools, on the served
+   slot batches and the edge batch, its own scratch page full of
+   garbage (2b), and the cross reads at Llama-3.2-Vision's and
+   Whisper's served shapes (2c):
    the cross decode kernel and the prefill kernel with
    ``causal=False``.  2d: the dense chunked-prefill kernel, driven
    through its entry (``ops.prefill_attention`` with no block table) and
@@ -29,9 +31,9 @@ Phases, in order (any failure exits non-zero):
    ragged kv_len with a 0), causal and windowed, and against the paged
    prefill kernel on the same K/V laid out as pages.  bf16 outputs are
    held to a limit scaled by the plain output's magnitude (``limit``).
-   The prefill kernels (1 and 5) run bf16 on their tensor-core body and
-   f32 on their CUDA-core body: 2d, 3-3e and 4-4d check it on the
-   wrappers' ``tensor_core_launches``.
+   The prefill kernels (1 and 5) and the MLA decode kernel (3) run bf16
+   on their tensor-core body and f32 on their CUDA-core body: 2d, 3-3e
+   and 4-4d check it on the wrappers' ``tensor_core_launches``.
 3. Serve: one PrefillEngine and one DecodeEngine driven through submit
    -> step -> receive -> admit -> step, 8 greedy requests, random
    weights from a seeded generator, bf16: full-width qwen2-0.5b (3),
@@ -411,12 +413,19 @@ def sdpa_decode_call(q, k_pool, v_pool, bt, lens):
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
 
-def random_latent_pools(cfg, n_pages, page, dtype, device, gen):
+def random_latent_pools(cfg, n_pages, page, dtype, device, gen,
+                        garbage=False):
+    """ckv and kr pools of ``n_pages`` random pages and the scratch page
+    (index n_pages); with ``garbage`` the scratch page holds 1e4 / -1e4,
+    which the kernel may not read."""
     import torch
     m = cfg.mla
-    return tuple(torch.randn((n_pages + 1, page, w), generator=gen,
-                             device=device).to(dtype)
-                 for w in (m.kv_lora_rank, m.qk_rope_head_dim))
+    pools = tuple(torch.randn((n_pages + 1, page, w), generator=gen,
+                              device=device)
+                  for w in (m.kv_lora_rank, m.qk_rope_head_dim))
+    if garbage:
+        pools[0][n_pages], pools[1][n_pages] = 1e4, -1e4
+    return tuple(p.to(dtype) for p in pools)
 
 
 def mla_args(cfg, g, pools, device, gen):
@@ -632,9 +641,10 @@ def check_kernels(cfg, reqs, device, tag="2"):
 def check_mla_kernel(cfg, reqs, device):
     """Phase 2b: the MLA decode kernel vs its plain version at the
     DeepSeek-V2 served decode shapes: f32 queries against f32 and bf16
-    latent pools, window 0 and WINDOW, full and partly empty slot
-    batches.  Returns (max abs error of the bf16-pool case, the slot
-    geometries)."""
+    latent pools whose scratch page holds garbage, window 0 and WINDOW,
+    the full and partly empty slot batches and ``edge_geometry``'s batch;
+    each case's error and share of the limit printed.  Returns (max abs
+    error of the bf16-pool cases, the served slot geometries)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_mla_decode_attention import (
@@ -648,10 +658,15 @@ def check_mla_kernel(cfg, reqs, device):
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         pools = random_latent_pools(cfg, SERVE["n_pages"],
-                                    SERVE["page_size"], dtype, device, gen)
+                                    SERVE["page_size"], dtype, device, gen,
+                                    garbage=True)
         err = 0.0
         for window in (0, WINDOW):
-            for g in slot_cases:
+            edge = edge_geometry(max_slots=SERVE["max_slots"],
+                                 window=window, **kw)
+            named = [("served", slot_cases[0]),
+                     ("served, 3 empty", slot_cases[1]), ("edge", edge)]
+            for case, g in named:
                 args = mla_args(cfg, g, pools, device, gen)
                 kwa = dict(scale=mla_scale(cfg), window=window)
                 got = paged_mla_decode_attention(*args, **kwa)
@@ -661,13 +676,15 @@ def check_mla_kernel(cfg, reqs, device):
                 empty = torch.from_numpy(g["lens"] == 0).to(device)
                 check(float(got[empty].abs().sum()) == 0.0,
                       "mla: an empty slot did not give zeros")
-                err = max(err, float((got - exp).abs().max()))
-        print(f"phase 2b: paged_mla_decode_attention vs plain, f32 queries, "
-              f"{dtype} pools, {len(slot_cases)} served slot batches x "
-              f"window 0/{WINDOW}: max abs err {err:.3e} (tolerance "
-              f"{tol:g})")
-        check(err <= tol, f"paged_mla_decode_attention disagrees with its "
-              f"plain version on {dtype} pools: {err} > {tol}")
+                e = float((got - exp).abs().max())
+                print(f"phase 2b: paged_mla_decode_attention vs plain, f32 "
+                      f"queries, {dtype} pools, {case} slot batch, window "
+                      f"{window}: max abs err {e:.3e}, {e / tol:.3f} of the "
+                      f"limit {tol:g}")
+                check(e <= tol, f"paged_mla_decode_attention disagrees "
+                      f"with its plain version on {dtype} pools, {case} "
+                      f"batch, window {window}: {e} > {tol}")
+                err = max(err, e)
         worst = err
     return worst, slot_cases
 
@@ -957,25 +974,28 @@ def zero_launches(kernels) -> None:
                 setattr(fn, extra, 0)
 
 
-PREFILL_KERNELS = ("paged_prefill_attention", "chunked_prefill_attention")
+# the kernels with a tensor-core body for bf16 and a CUDA-core one for f32
+# (kernel 3's dtype is its pools')
+TC_KERNELS = ("paged_prefill_attention", "chunked_prefill_attention",
+              "paged_mla_decode_attention")
 
 
 def read_launches(kernels):
     """The launch counters by kernel; kernel 1's non-causal launches
-    under ``paged_prefill_attention (causal=False)`` and the prefill
-    kernels' tensor-core launches under ``<name> (tensor cores)``."""
+    under ``paged_prefill_attention (causal=False)`` and the tensor-core
+    launches of kernels 1, 5 and 3 under ``<name> (tensor cores)``."""
     launches = {name: fn.launches for name, fn in kernels.items()}
     launches["paged_prefill_attention (causal=False)"] = kernels[
         "paged_prefill_attention"].noncausal_launches
-    for name in PREFILL_KERNELS:
+    for name in TC_KERNELS:
         launches[f"{name} (tensor cores)"] = kernels[name].tensor_core_launches
     return launches
 
 
 def check_bodies(tag, launches, dtype):
-    """Every launch of the prefill kernels ran the tensor-core body in
+    """Every launch of kernels 1, 5 and 3 ran the tensor-core body in
     bf16 and the CUDA-core body in f32."""
-    for name in PREFILL_KERNELS:
+    for name in TC_KERNELS:
         tc = launches[f"{name} (tensor cores)"]
         want = launches[name] if dtype == "bfloat16" else 0
         check(tc == want, f"phase {tag}: {name} launched {launches[name]} "
@@ -988,7 +1008,7 @@ def serve_phase(tag, cfg, params, device, kernels, card,
     (tokens drawn in ``cfg``'s vocabulary, prompt lengths in
     ``prompts``, frontend embeddings ``enc``) with every launch counter
     set to 0 just before and read just after.  Checks the run (every
-    bf16 launch of kernels 1 and 5 on the tensor-core body) and prints
+    bf16 launch of kernels 1, 5 and 3 on the tensor-core body) and prints
     its numbers; returns (launches by kernel as ``read_launches`` gives
     them, prefill engine, decode engine)."""
     reqs = make_requests(cfg.vocab_size, lo=prompts[0], hi=prompts[1],
@@ -1293,7 +1313,7 @@ def time_kernel(name, cases, kern, plain, lib, work, dtype, card,
     the bound, the achieved TFLOP/s (the FLOPs ``work`` counts over the
     kernel's time), the wrapper's host µs a call (``host_us``: the ms is
     the larger of host and device time where calls run back to back),
-    and the body the kernel ran: ``body``, or for a prefill kernel (its
+    and the body the kernel ran: ``body``, or for kernels 1, 5 and 3 (their
     ``wrapper`` given) ``tensor_core`` where the wrapper's
     ``tensor_core_launches`` rose while it was timed, which bf16
     requires.  The row joins TIMED for its device time."""
@@ -1482,7 +1502,7 @@ def main() -> int:
     cross_serve_phase("3d", wh_cfg, device, kernels, card, WHISPER_PROMPTS)
 
     # -- phase 4: device vs CPU, 2 layers, f32 ---------------------------
-    # (phases 4-4d run the prefill kernels in f32 only: their counters,
+    # (phases 4-4d run kernels 1, 5 and 3 in f32 only: their counters,
     # set to 0 here, must show no launch on the tensor-core body)
     zero_launches(kernels)
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
@@ -1529,8 +1549,8 @@ def main() -> int:
     check_bodies("4-4d", f32_launches, "float32")
     check(f32_launches["paged_prefill_attention"] > 0, "phases 4-4d: "
           f"kernel 1 never launched: {f32_launches}")
-    print(f"phases 4-4d: launches {f32_launches}: every f32 prefill launch "
-          "on the CUDA-core body")
+    print(f"phases 4-4d: launches {f32_launches}: every f32 launch of "
+          "kernels 1 and 3 on the CUDA-core body")
 
     # -- phase 5: kernel times at the served shapes (bf16) ---------------
     dtype = torch.bfloat16
@@ -1561,7 +1581,7 @@ def main() -> int:
             lambda *a: paged_mla_decode_attention(*a, scale=scale),
             lambda *a: ref.paged_mla_decode_attention(*a, scale=scale),
             lambda *a: sdpa_mla_call(*a, scale), lambda a: mla_work(*a),
-            dtype, card)}
+            dtype, card, paged_mla_decode_attention)}
     vlm_pools = random_pools(vlm_cfg, CROSS_PAGES, SERVE["page_size"],
                              dtype, device, gen)
     wh_pools = random_pools(wh_cfg, CROSS_PAGES, SERVE["page_size"], dtype,

@@ -140,6 +140,27 @@ def raw_stream(device) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
+# device -> (float32 partial states, int32 split counters) of the decode
+# kernels (2, 3 and 4): kept between calls, as the counters must start at
+# zero and every launch leaves them there; launches on one stream use
+# them in turn
+_workspaces: dict = {}
+
+
+def workspace(device, n_part: int, n_counters: int):
+    """The device's workspace, grown to at least ``n_part`` floats and
+    ``n_counters`` zeroed int32 counters."""
+    import torch
+    part, counters = _workspaces.get(device, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(max(n_part, 1), dtype=torch.float32,
+                           device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    _workspaces[device] = part, counters
+    return part, counters
+
+
 def raise_on_error(kernel: str, err: int) -> None:
     if err:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")

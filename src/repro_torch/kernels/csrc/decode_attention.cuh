@@ -117,36 +117,12 @@ struct Geometry {
   }
 };
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N of this thread's committed groups are pending
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-template <typename T>
-__device__ __forceinline__ float exp2_t(float x) {
-  if constexpr (std::is_same<T, float>::value) return exp2f(x);
-  return paged_attn::fast_exp2(x);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
+using paged_attn::cp_async_commit;
+using paged_attn::cp_async_wait;
+using paged_attn::exp2_t;
+using paged_attn::ldsm_x4;
+using paged_attn::ldsm_x4_t;
+using paged_attn::share_keys;
 // d (m16n8, f32) += a (m16k16 bf16: a0 rows 0-7 k 0-7, a2 rows 0-7 k
 // 8-15; rows 8-15 zero) * b (k16n8 bf16)
 __device__ __forceinline__ void mma_k16(float (&d)[4], uint32_t a0,
@@ -414,28 +390,6 @@ struct MmaWarp {
           make_float2(o[j][0], o[j][1]);
   }
 };
-
-// The share of the live pages that split `split` of `splits` walks, as
-// keys [*k_begin, *k_end) (empty when k_end <= k_begin); *active of the
-// splits have a share that is not empty (min(splits, live pages)), and
-// this one, if it has, is the *rank-th of them.  Mirrored by
-// decode_plan.share_keys.
-__device__ __forceinline__ void share_keys(int len, int window, int page,
-                                           int n_slots, int split,
-                                           int splits, int* k_begin,
-                                           int* k_end, int* rank,
-                                           int* active) {
-  const int k_lo = window > 0 && len > window ? len - window : 0;
-  const int p_lo = k_lo / page;
-  const int p_hi = min(n_slots, (len + page - 1) / page);
-  const int n = max(0, p_hi - p_lo);
-  const int s_lo = p_lo + (int)((long long)split * n / splits);
-  const int s_hi = p_lo + (int)((long long)(split + 1) * n / splits);
-  *k_begin = max(k_lo, s_lo * page);
-  *k_end = min(len, s_hi * page);
-  *active = min(splits, n);
-  *rank = n < splits ? s_lo - p_lo : split;   // one page a share then
-}
 
 // One block of (slot, KV head g, split) = blockIdx (x, y, z).  q (b, h,
 // HD), pools (n_pages, page, kvh, HD), out (b, h, HD), all T; bt (b,

@@ -5,9 +5,10 @@
 // Their bf16 inputs take the tensor-core body of prefill_attention_tc.cuh.
 // It no longer serves decode: the two decode kernels
 // (paged_decode_attention.cu, paged_cross_decode_attention.cu) run
-// decode_attention.cuh in both dtypes.  Also the small device helpers
-// those bodies share (loads, cp.async, exp2, warp reductions, the
-// shared-memory opt-in).
+// decode_attention.cuh in both dtypes, the MLA decode kernel its own body
+// (paged_mla_decode_attention.cu).  Also the small device helpers those
+// bodies share (loads, cp.async, ldmatrix, exp2, warp reductions, the
+// decode bodies' cut of a slot's live pages, the shared-memory opt-in).
 //
 // One thread block owns R = n_q * rep query rows that all read the same
 // KV head g: n_q consecutive query positions of one segment times the
@@ -45,6 +46,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace paged_attn {
 
@@ -100,12 +103,69 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // 2^x in one MUFU.EX2 (exp2f adds a scaling for denormal results; here
 // those are weights below 2^-126, flushed to 0)
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// 2^x in f32's precision for T = float, else in one MUFU.EX2
+template <typename T>
+__device__ __forceinline__ float exp2_t(float x) {
+  if constexpr (std::is_same<T, float>::value) return exp2f(x);
+  return fast_exp2(x);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+// The share of a slot's live pages that split `split` of `splits` walks
+// in the decode bodies (decode_attention.cuh, paged_mla_decode_attention
+// .cu), as keys [*k_begin, *k_end) (empty when k_end <= k_begin); the live
+// pages hold the keys in [max(0, len - window), len) within the table's
+// n_slots pages, cut into `splits` shares of whole pages.  *active of the
+// splits have a share that is not empty (min(splits, live pages)), and
+// this one, if it has, is the *rank-th of them.  Mirrored by
+// decode_plan.share_keys.
+__device__ __forceinline__ void share_keys(int len, int window, int page,
+                                           int n_slots, int split,
+                                           int splits, int* k_begin,
+                                           int* k_end, int* rank,
+                                           int* active) {
+  const int k_lo = window > 0 && len > window ? len - window : 0;
+  const int p_lo = k_lo / page;
+  const int p_hi = min(n_slots, (len + page - 1) / page);
+  const int n = max(0, p_hi - p_lo);
+  const int s_lo = p_lo + (int)((long long)split * n / splits);
+  const int s_hi = p_lo + (int)((long long)(split + 1) * n / splits);
+  *k_begin = max(k_lo, s_lo * page);
+  *k_end = min(len, s_hi * page);
+  *active = min(splits, n);
+  *rank = n < splits ? s_lo - p_lo : split;   // one page a share then
 }
 
 __device__ __forceinline__ float warp_max(float x) {

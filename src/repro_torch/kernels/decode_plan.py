@@ -80,7 +80,8 @@ def share_keys(length: int, window: int, page: int, n_slots: int,
                split: int, splits: int):
     """(begin, end, rank, active) for split ``split`` of ``splits`` of a
     slot of ``length`` tokens (``share_keys`` in
-    ``csrc/decode_attention.cuh``): it walks keys [begin, end), empty when
+    ``csrc/paged_attention.cuh``, which the decode body and kernel 3
+    share): it walks keys [begin, end), empty when
     end <= begin, its share of the live pages [p_lo, p_hi), those holding
     the keys in [max(0, length - window), length), capped at the table's
     width, cut in ``splits`` shares of whole pages.  ``active`` splits

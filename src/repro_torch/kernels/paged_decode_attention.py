@@ -32,21 +32,7 @@ from repro_torch.kernels.prefill_plan import sm_count
 NAME = "paged_decode_attention"
 _FLOATS = ("torch.float32", "torch.bfloat16")
 _I32 = ("torch.int32",)
-# device -> (float32 partial states, int32 split counters): kept between
-# calls, as the counters must start at zero and every launch leaves them
-# there; launches on one stream use them in turn
-_workspaces: dict = {}
 _launchers: dict = {}
-
-
-def _workspace(dev, n_part: int, n_counters: int):
-    part, counters = _workspaces.get(dev, (None, None))
-    if part is None or part.numel() < n_part:
-        part = torch.empty(max(n_part, 1), dtype=torch.float32, device=dev)
-    if counters is None or counters.numel() < n_counters:
-        counters = torch.zeros(n_counters, dtype=torch.int32, device=dev)
-    _workspaces[dev] = part, counters
-    return part, counters
 
 
 def _launcher(name: str, symbol: str):
@@ -117,7 +103,7 @@ def launch(name: str, symbol: str, q, k_pool, v_pool, block_table, lens,
     plan = decode_plan(q.dtype, b, h, kvh, hd, hd_v, page, n_slots,
                        sm_count(dev))
     out = q.new_empty((b, h, hd_v))
-    part, counters = _workspace(
+    part, counters = build.workspace(
         dev, 0 if plan.splits == 1 else b * h * plan.splits * (hd_v + 2),
         b * kvh)
     args = array("q", (

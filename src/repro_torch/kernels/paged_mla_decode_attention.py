@@ -6,63 +6,91 @@ iteration of an MLA model runs the whole slot batch through it, every
 layer; empty slots carry ``lens = 0`` and get zeros.
 
 The kernel (``csrc/paged_mla_decode_attention.cu``) runs one block per
-(slot, group of ``hg`` heads, split of the block-table slots): each live
-latent page is loaded once per block as one [ckv | kr] tile that serves
-both the scores and PV, and a second small launch combines the splits'
-partial softmax states.  The head count must be a multiple of 4 and the
-latent widths multiples of 4 (of 8 for bf16 pools).  The queries, the
-pools and the output may differ in dtype, as in the reference (f32
-queries against a bf16 pool): the output takes q_lat's dtype.
+(slot, block of heads, split of the slot's live pages): each latent
+tile is loaded once a block, in the pool's type, and serves both the
+scores and PV; the splits are merged by the last block of a (slot, head
+block) in the same launch.  bf16 pools run on the tensor cores
+(``mma.sync``; f32 queries as three bf16 terms each, so the f32 output
+stays within 2e-5 of the plain version), f32 pools on the CUDA cores;
+``mla_plan`` gives the launch and refuses an uninstantiated (lora,
+rope).  The queries, the pools and the output may differ in dtype, as
+in the reference (f32 queries against a bf16 pool): the output takes
+q_lat's dtype.
 
 On a CPU tensor the wrapper runs the plain version
 (``ref.paged_mla_decode_attention``); on a CUDA tensor it launches the
 kernel or raises.  ``paged_mla_decode_attention.launches`` counts kernel
-launches.
+launches, ``tensor_core_launches`` those on the tensor-core body.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from array import array
 
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.mla_plan import mla_plan
+from repro_torch.kernels.prefill_plan import TENSOR_CORE, sm_count
 
 NAME = "paged_mla_decode_attention"
-SLOTS_PER_SPLIT = 8     # block-table slots one block covers
-HEAD_GROUPS = (16, 8, 4)   # heads per block, largest that fits
-MAX_ACC = 8192          # hg * lora: 2 PV items of 4 x 4 per thread
 _FLOATS = ("torch.float32", "torch.bfloat16")
 _I32 = ("torch.int32",)
-_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def smem_bytes(hg: int, lora: int, rope: int, page: int) -> int:
-    """Shared memory of one block (mirrors ``smem_bytes`` in the .cu)."""
-    w = lora + rope
-    wp = w + (4 if (w // 4) % 2 == 0 else 8)
-    return 4 * (hg * wp + page * wp + page * hg + 3 * hg)
-
-
-def head_group(h: int, lora: int, rope: int, page: int) -> int:
-    """Heads per block: the largest of HEAD_GROUPS that divides h, keeps
-    the PV accumulators in registers and fits one block's shared
-    memory."""
-    for hg in HEAD_GROUPS:
-        if (h % hg == 0 and hg * lora <= MAX_ACC
-                and smem_bytes(hg, lora, rope, page) <= build.MAX_SMEM):
-            return hg
-    raise ValueError(f"{NAME}: no head group of {HEAD_GROUPS} fits h {h}, "
-                     f"lora {lora}, rope {rope}, page {page} (h must be a "
-                     f"multiple of 4, hg * lora at most {MAX_ACC}, shared "
-                     f"memory at most {build.MAX_SMEM} B)")
-
-
+@functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load(NAME).paged_mla_decode_attention_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 9 + [ctypes.c_float, _I, _I, _P]
-        fn.restype = _I
+    # the launch's pointers and sizes packed in one int64 array
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return fn
+
+
+def _float(t) -> bool:
+    return t.dtype is torch.float32 or t.dtype is torch.bfloat16
+
+
+def _fits(q_lat, q_rope, ckv_pool, kr_pool, block_table, lens) -> bool:
+    """What ``_check`` holds, in one pass for the common case: types,
+    ranks, one device, contiguity, 16-byte rows."""
+    dev = q_lat.device
+    return (_float(q_lat) and q_rope.dtype is q_lat.dtype
+            and _float(ckv_pool) and kr_pool.dtype is ckv_pool.dtype
+            and block_table.dtype is torch.int32
+            and lens.dtype is torch.int32 and q_lat.dim() == 3
+            and q_rope.dim() == 3 and ckv_pool.dim() == 3
+            and kr_pool.dim() == 3 and block_table.dim() == 2
+            and lens.dim() == 1 and q_rope.device == dev
+            and ckv_pool.device == dev and kr_pool.device == dev
+            and block_table.device == dev and lens.device == dev
+            and q_lat.is_contiguous() and q_rope.is_contiguous()
+            and ckv_pool.is_contiguous() and kr_pool.is_contiguous()
+            and block_table.is_contiguous() and lens.is_contiguous()
+            and not ckv_pool.shape[2] * ckv_pool.element_size() % 16
+            and not kr_pool.shape[2] * kr_pool.element_size() % 16
+            and not (q_lat.data_ptr() | q_rope.data_ptr()
+                     | ckv_pool.data_ptr() | kr_pool.data_ptr()) % 16)
+
+
+def _check(q_lat, q_rope, ckv_pool, kr_pool, block_table, lens) -> None:
+    """Raise, naming the fault, unless the tensors fit the kernel."""
+    dev = q_lat.device
+    build.check_cuda("q_lat", q_lat, ndim=3, dtypes=_FLOATS, device=dev)
+    build.check_cuda("q_rope", q_rope, ndim=3, dtypes=(str(q_lat.dtype),),
+                     device=dev)
+    build.check_cuda("ckv_pool", ckv_pool, ndim=3, dtypes=_FLOATS,
+                     device=dev)
+    build.check_cuda("kr_pool", kr_pool, ndim=3,
+                     dtypes=(str(ckv_pool.dtype),), device=dev)
+    build.check_cuda("block_table", block_table, ndim=2, dtypes=_I32,
+                     device=dev)
+    build.check_cuda("lens", lens, ndim=1, dtypes=_I32, device=dev)
+    build.check_pool_rows(NAME, q_lat, q_lat.shape[2])
+    build.check_pool_rows(NAME, q_rope, q_rope.shape[2])
+    build.check_pool_rows(NAME, ckv_pool, ckv_pool.shape[2])
+    build.check_pool_rows(NAME, kr_pool, kr_pool.shape[2])
 
 
 def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, kr_pool,
@@ -82,24 +110,16 @@ def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, kr_pool,
             scale=scale, window=window)
     if q_lat.device.type != "cuda":
         raise ValueError(f"{NAME}: no kernel for device {q_lat.device}")
+    if not _fits(q_lat, q_rope, ckv_pool, kr_pool, block_table, lens):
+        _check(q_lat, q_rope, ckv_pool, kr_pool, block_table, lens)
     dev = q_lat.device
-    build.check_cuda("q_lat", q_lat, ndim=3, dtypes=_FLOATS, device=dev)
-    build.check_cuda("q_rope", q_rope, ndim=3, dtypes=(str(q_lat.dtype),),
-                     device=dev)
-    build.check_cuda("ckv_pool", ckv_pool, ndim=3, dtypes=_FLOATS,
-                     device=dev)
-    build.check_cuda("kr_pool", kr_pool, ndim=3,
-                     dtypes=(str(ckv_pool.dtype),), device=dev)
-    build.check_cuda("block_table", block_table, ndim=2, dtypes=_I32,
-                     device=dev)
-    build.check_cuda("lens", lens, ndim=1, dtypes=_I32, device=dev)
     b, h, lora = q_lat.shape
     rope = q_rope.shape[2]
     n_pages, page = ckv_pool.shape[:2]
     n_slots = block_table.shape[1]
     if (q_rope.shape[:2] != (b, h) or ckv_pool.shape[2] != lora
             or kr_pool.shape != (n_pages, page, rope)
-            or block_table.shape[0] != b or lens.shape != (b,)
+            or block_table.shape[0] != b or lens.shape[0] != b
             or min(b, n_slots) < 1):
         raise ValueError(
             f"{NAME}: shapes q_lat {tuple(q_lat.shape)}, q_rope "
@@ -107,24 +127,28 @@ def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, kr_pool,
             f"{tuple(kr_pool.shape)}, block_table "
             f"{tuple(block_table.shape)}, lens {tuple(lens.shape)} do not "
             "fit")
-    hg = head_group(h, lora, rope, page)
-    build.check_pool_rows(NAME, ckv_pool, lora)
-    build.check_pool_rows(NAME, kr_pool, rope)
-    splits = -(-n_slots // SLOTS_PER_SPLIT)
-    part = torch.empty((b, h // hg, splits, hg * (lora + 2)),
-                       dtype=torch.float32, device=dev)
-    out = torch.empty((b, h, lora), dtype=q_lat.dtype, device=dev)
-    err = _launcher()(
+    plan = mla_plan(q_lat.dtype, ckv_pool.dtype, b, h, lora, rope, page,
+                    n_slots, sm_count(dev))
+    out = q_lat.new_empty((b, h, lora))
+    n_pairs = b * plan.head_blocks
+    part, counters = build.workspace(
+        dev, 0 if plan.splits == 1
+        else n_pairs * plan.splits * plan.heads * (lora + 2), n_pairs)
+    args = array("q", (
         q_lat.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
         kr_pool.data_ptr(), block_table.data_ptr(), lens.data_ptr(),
-        part.data_ptr(), out.data_ptr(), b, h, hg, lora, rope, page,
-        n_slots, SLOTS_PER_SPLIT, int(window), float(scale),
-        build.DTYPE_CODES[str(q_lat.dtype)],
-        build.DTYPE_CODES[str(ckv_pool.dtype)],
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), part.data_ptr(), counters.data_ptr(), b, h, lora,
+        rope, page, n_slots, plan.splits, int(window), plan.smem,
+        plan.threads, build.DTYPE_CODES[str(q_lat.dtype)],
+        build.DTYPE_CODES[str(ckv_pool.dtype)]))
+    err = _launcher()(args.buffer_info()[0], float(scale),
+                      build.raw_stream(dev))
     build.raise_on_error(NAME, err)
     paged_mla_decode_attention.launches += 1
+    if plan.body == TENSOR_CORE:
+        paged_mla_decode_attention.tensor_core_launches += 1
     return out
 
 
 paged_mla_decode_attention.launches = 0
+paged_mla_decode_attention.tensor_core_launches = 0

@@ -19,8 +19,9 @@ from repro_torch.kernels.paged_cross_decode_attention import (
     paged_cross_decode_attention)
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention)
+from repro_torch.kernels.mla_plan import mla_plan
 from repro_torch.kernels.paged_mla_decode_attention import (
-    head_group, paged_mla_decode_attention)
+    paged_mla_decode_attention)
 from repro_torch.kernels.paged_prefill_attention import (
     paged_prefill_attention)
 
@@ -273,10 +274,18 @@ def test_mla_wrapper_refuses_unsupported_devices_and_shapes():
     q = torch.zeros(1, 2, 8, device="meta")
     with pytest.raises(ValueError):
         paged_mla_decode_attention(q, q, q, q, q, q, scale=1.0)
-    # full width: 16 heads of 512 + 64 latent columns per block (75 KB)
-    assert head_group(128, 512, 64, 16) == 16
-    with pytest.raises(ValueError):           # one page alone is too wide
-        head_group(128, 512, 64, 128)
+    # full width: blocks of 16 heads, 8 a slot, on the tensor cores for
+    # a bf16 pool (f32 queries as three bf16 terms), 2 blocks an SM
+    plan = mla_plan(torch.float32, torch.bfloat16, 8, 128, 512, 64, 16,
+                    128)
+    assert (plan.heads, plan.head_blocks, plan.body) == (16, 8,
+                                                         "tensor_core")
+    assert plan.q_terms == 3 and 2 * plan.smem < 232_448
+    # any head count: 12 heads run as one zero-padded block
+    assert mla_plan(torch.float32, torch.float32, 4, 12, 32, 16, 32,
+                    20).head_blocks == 1
+    with pytest.raises(ValueError, match="lora=128, rope=64"):
+        mla_plan(torch.float32, torch.bfloat16, 8, 16, 128, 64, 16, 128)
 
 
 def _decode_edges(h, kvh, hd, page, tdt, window):
@@ -375,6 +384,43 @@ def test_cuda_kernels_match_plain_versions(dtype, h, kvh, hd, page):
         2 * prefill if dtype == "bfloat16" else 0)
 
 
+def _mla_edges(h, lora, rope, page, qdt, pdt, window, tol):
+    """Kernel 3 against its plain version on its body's edges, on the
+    card: 40-slot tables over pools whose scratch page holds garbage
+    (1e4 / -1e4): a slot whose live pages span every split, one shorter
+    than one share, an empty slot, one ending mid-page; every table slot
+    past a slot's length or slid out of ``window`` on the scratch page.
+    Empty slots exactly 0."""
+    dev = torch.device("cuda")
+    b, n_slots = 4, 40
+    npages = b * n_slots + 1
+    trash = npages - 1
+    rng = np.random.default_rng(19)
+
+    def t(shape, dt):
+        return torch.from_numpy(_rand(rng, shape)).to(dev).to(dt)
+    ql, qr = t((b, h, lora), qdt), t((b, h, rope), qdt)
+    cp, kr = t((npages, page, lora), torch.float32), t((npages, page, rope),
+                                                       torch.float32)
+    cp[trash], kr[trash] = 1e4, -1e4
+    cp, kr = cp.to(pdt), kr.to(pdt)
+    lens = [n_slots * page, min(3, page), 0, n_slots * page // 2 + 1]
+    bt = rng.permutation(trash)[:b * n_slots].reshape(b, n_slots)
+    for i, n in enumerate(lens):
+        bt[i, -(-n // page):] = trash
+        if window:
+            bt[i, :max(0, n - window) // page] = trash
+    args = (ql, qr, cp, kr, torch.from_numpy(bt.astype(np.int32)).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+    kw = dict(scale=(lora + rope) ** -0.5, window=window)
+    got = paged_mla_decode_attention(*args, **kw)
+    exp = ref.paged_mla_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == qdt and bool(torch.isfinite(got).all())
+    assert float((got.float() - exp.float()).abs().max()) < tol
+    assert float(got[2].float().abs().max()) == 0.0
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("q_dtype,pool_dtype", [
     ("float32", "float32"), ("float32", "bfloat16"),
@@ -382,14 +428,18 @@ def test_cuda_kernels_match_plain_versions(dtype, h, kvh, hd, page):
 @pytest.mark.parametrize("h,lora,rope,page", [
     (128, 512, 64, 16),   # DeepSeek-V2 at full width
     (4, 64, 16, 4),       # the smoke config, small pages
-    (12, 32, 16, 32),     # head groups of 4, long pages
+    (12, 32, 16, 32),     # 12 heads: one zero-padded block, long pages
+    (128, 512, 64, 1),    # one-token pages
+    (128, 512, 64, 64),   # pages of 64
+    (4, 64, 16, 16),      # the smoke config at the served page size
 ])
 def test_cuda_mla_kernel_matches_plain_version(q_dtype, pool_dtype, h, lora,
                                                rope, page):
     """On the card: the paged MLA decode kernel against its plain version
     on the same CUDA inputs (f32 queries against an f32 or bf16 pool, as
     the model calls it, and all-bf16): ragged lens across splits, a
-    lens = 0 slot on the scratch page, window 0 and 5."""
+    lens = 0 slot on the scratch page, window 0 and 5, and its body's
+    edges (``_mla_edges``); bf16 pools run the tensor-core body."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
@@ -408,7 +458,8 @@ def test_cuda_mla_kernel_matches_plain_version(q_dtype, pool_dtype, h, lora,
     bt = torch.from_numpy(bt).to(dev)
     lens = torch.tensor([1, 0, maxlen, maxlen // 2 + 3], dtype=torch.int32,
                         device=dev)
-    before = paged_mla_decode_attention.launches
+    before = (paged_mla_decode_attention.launches,
+              paged_mla_decode_attention.tensor_core_launches)
     for window in (0, 5):
         args = (ql, qr, cp, kr, bt, lens)
         kw = dict(scale=(lora + rope) ** -0.5, window=window)
@@ -418,7 +469,10 @@ def test_cuda_mla_kernel_matches_plain_version(q_dtype, pool_dtype, h, lora,
         assert got.dtype == qdt
         assert float((got.float() - exp.float()).abs().max()) < tol
         assert float(got[1].float().abs().max()) == 0.0
-    assert paged_mla_decode_attention.launches == before + 2
+        _mla_edges(h, lora, rope, page, qdt, pdt, window, tol)
+    assert paged_mla_decode_attention.launches == before[0] + 4
+    assert paged_mla_decode_attention.tensor_core_launches == before[1] + (
+        4 if pool_dtype == "bfloat16" else 0)
 
 
 @pytest.mark.gpu

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the two paged decode wrappers (kernels 2 and 4) of a checkout at
+"""Time the paged decode wrappers (kernels 2, 3 and 4) of a checkout at
 the served decode shapes, on one card, without the rest of the smoke run.
 
     python3 tools/time_decode_wrappers.py [--src DIR] [--tag NAME]
@@ -9,8 +9,10 @@ the served decode shapes, on one card, without the rest of the smoke run.
 ``git archive`` unpacked elsewhere) can be timed beside this one's in
 one call on one card.  The shapes and inputs are ``chip_smoke.py``'s
 phase 5 decode rows (bf16, the 8-slot batch mid-run): qwen2-0.5b,
-Llama-3.2-Vision and Whisper-tiny self-attention (kernel 2), and the two
-cross reads (kernel 4).  For each row it prints one JSON line: ms a
+Llama-3.2-Vision and Whisper-tiny self-attention (kernel 2), the two
+cross reads (kernel 4) and DeepSeek-V2's MLA decode (kernel 3: 128
+heads, bf16 latent pools, f32 queries).  For each row it prints one
+JSON line: ms a
 launch by CUDA events over back-to-back calls, the wrapper's host µs a
 call (``chip_smoke.host_us``), both before any profiler session, the
 card's device µs a call by the profiler (``chip_smoke.device_us``), the
@@ -39,10 +41,14 @@ def main() -> int:
     sys.path[:0] = [a.src, str(ROOT)]
     import chip_smoke as cs
     from repro_torch.configs import get_config
+    from repro_torch.configs.deepseek_v2_236b import served
     from repro_torch.kernels.paged_cross_decode_attention import (
         paged_cross_decode_attention)
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention)
+    from repro_torch.kernels.paged_mla_decode_attention import (
+        paged_mla_decode_attention)
+    from repro_torch.models.attention import mla_scale
     dev, dtype = torch.device("cuda"), torch.bfloat16
     card = cs.card_line()
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 2)
@@ -52,6 +58,8 @@ def main() -> int:
     reqs = cs.make_requests(qwen.vocab_size)
     wh_reqs = cs.make_requests(wh.vocab_size, lo=cs.WHISPER_PROMPTS[0],
                                hi=cs.WHISPER_PROMPTS[1])
+    # (name, kernel, its arguments, (bytes, FLOPs) of those arguments)
+    dec_work = lambda a: cs.decode_work(a[0], a[1], *a[3:])  # noqa: E731
     rows = []
     for cfg, rq in ((qwen, reqs), (vlm, reqs), (wh, wh_reqs)):
         g = cs.decode_geometry(rq, max_slots=cs.SERVE["max_slots"], **kw)
@@ -59,7 +67,8 @@ def main() -> int:
                                 cs.SERVE["page_size"], dtype, dev, gen)
         rows.append((f"paged_decode_attention, {cfg.name} self",
                      paged_decode_attention,
-                     cs.decode_args(cfg, g, pools, dtype, dev, gen)))
+                     cs.decode_args(cfg, g, pools, dtype, dev, gen),
+                     dec_work))
     for cfg, rq in ((vlm, reqs), (wh, wh_reqs)):
         _, slots = cs.cross_geometry(rq, cfg.cross_ctx,
                                      cs.SERVE["chunk_size"],
@@ -69,17 +78,26 @@ def main() -> int:
                                 dtype, dev, gen)
         rows.append((f"paged_cross_decode_attention, {cfg.name}",
                      paged_cross_decode_attention,
-                     cs.decode_args(cfg, slots[0], pools, dtype, dev, gen)))
+                     cs.decode_args(cfg, slots[0], pools, dtype, dev, gen),
+                     dec_work))
+    ds = served()
+    g = cs.decode_geometry(reqs, max_slots=cs.SERVE["max_slots"], **kw)
+    lat = cs.random_latent_pools(ds, cs.SERVE["n_pages"],
+                                 cs.SERVE["page_size"], dtype, dev, gen)
+    rows.append((f"paged_mla_decode_attention, {ds.name}",
+                 lambda *a, s=mla_scale(ds): paged_mla_decode_attention(
+                     *a, scale=s),
+                 cs.mla_args(ds, g, lat, dev, gen),
+                 lambda a: cs.mla_work(*a)))
     # every row's CUDA-event ms and host µs first, then the profiler's
     # device µs, then the ms again: a profiler session can slow later
     # launches on the host
     first = [(cs.cuda_ms(lambda: kern(*args), reps=50),
               cs.host_us(lambda: kern(*args), reps=50))
-             for _, kern, args in rows]
-    for (name, kern, args), (ms, host) in zip(rows, first):
+             for _, kern, args, _ in rows]
+    for (name, kern, args, work), (ms, host) in zip(rows, first):
         device = cs.device_us(lambda: kern(*args), reps=50)
-        bound, _ = cs.bound(*cs.decode_work(args[0], args[1], *args[3:]),
-                            dtype)
+        bound, _ = cs.bound(*work(args), dtype)
         print(json.dumps({"tag": a.tag, "row": name, "ms": ms,
                           "host_us": host, "device_us": device,
                           "ms_after_profiler": cs.cuda_ms(
