@@ -29,22 +29,34 @@ Phases, in order (any failure exits non-zero):
    held against its plain version at qwen2's and Llama-3.2-Vision's
    widths (8 requests, a 512-query chunk at 512 in caches of 2048,
    ragged kv_len with a 0), causal and windowed, and against the paged
-   prefill kernel on the same K/V laid out as pages.  bf16 outputs are
-   held to a limit scaled by the plain output's magnitude (``limit``).
+   prefill kernel on the same K/V laid out as pages.  2e: the paged
+   prefill and decode kernels at the served shapes of OPT-13B (rep 1),
+   Mistral-Nemo (rep 4, window 0 and its 4,096-token window on the
+   windowed run's trimmed tables), Phi-4-mini and Granite (rep 3) and
+   DeepSeek-67B (rep 8).  bf16 outputs are held to a limit scaled by
+   the plain output's magnitude (``limit``).
    The prefill kernels (1 and 5) and the MLA decode kernel (3) run bf16
-   on their tensor-core body and f32 on their CUDA-core body: 2d, 3-3e
-   and 4-4d check it on the wrappers' ``tensor_core_launches``.
+   on their tensor-core body and f32 on their CUDA-core body: 2d, 3-3i
+   and 4-4e check it on the wrappers' ``tensor_core_launches``.
 3. Serve: one PrefillEngine and one DecodeEngine driven through submit
-   -> step -> receive -> admit -> step, 8 greedy requests, random
-   weights from a seeded generator, bf16: full-width qwen2-0.5b (3),
+   -> step -> receive -> admit -> step, 8 greedy requests (unless said
+   otherwise), random weights from a seeded generator, bf16: full-width qwen2-0.5b (3),
    DeepSeek-V2 at full width and 4 layers (3b: MLA latent pages, routed
    MoE), Llama-3.2-Vision-11B at full width and depth (3c) and
    Whisper-tiny whole (3d), both with read-only cross pages and stub
    frontend embeddings.  3e: full-width qwen2-0.5b through the serving
    API, ``Cluster(runtime="engine")`` with 2 prefill and 2 decode
    instances: the 8 requests streamed, a ninth cancelled after its third
-   streamed token.  Every kernel's launch counter is set to 0 just
-   before each run and read just after it.
+   streamed token.  3f: OPT-13B whole (40 layers, 12.9 G parameters);
+   3g: Mistral-Nemo-12B whole with a 4,096-token window, prompts of
+   4,608-8,192 (every payload and decoding slot within pages_for(window)
+   + 1 pages, windowed wire bytes); 3h: Phi-4-mini and Granite-MoE whole
+   and DeepSeek-67B at ``served()``'s depth, 4 requests of 16 tokens;
+   3f-3h check launches and wire bytes.  3i: qwen2-0.5b with every
+   second request sampled (temperature 0.8, top-k 20): two runs
+   identical, greedy streams those of an all-greedy run.  Every kernel's
+   launch counter is set to 0 just before each run and read just after
+   it.
 4. Device vs CPU in f32, once on the card (kernels) and once on the CPU
    (plain versions): qwen2-0.5b at 2 layers on the served requests (4),
    DeepSeek-V2 at 2 layers (dense prefix + 1 routed) on 2 short requests
@@ -52,10 +64,14 @@ Phases, in order (any failure exits non-zero):
    (5 layers) on 2 short requests (4c): same greedy tokens, first-chunk
    logits within tolerance.  4d: phase 3e's Cluster run at 2 layers in
    f32, on the card and on the CPU: the same token streams, virtual
-   timestamps and instance assignment.
+   timestamps and instance assignment.  4e: phase 3i's mixed greedy /
+   sampled batch (sampled lanes included), OPT-13B and Mistral-Nemo at a
+   64-token window in 64-token chunks, at 2 layers: the same tokens.
 5. Numbers: prefill and decode tokens/s of the served runs, and each
    kernel's time at the served shapes beside its bound, its plain
-   version and one PyTorch library call, measured with CUDA events,
+   version and one PyTorch library call, measured with CUDA events
+   (kernels 1 and 2 also at OPT-13B's and windowed Mistral-Nemo's
+   shapes, the library call then on the in-window K/V),
    with its achieved TFLOP/s, the body it ran and the wrapper's host µs
    a call; then, every row timed, the card's device µs a call by the
    profiler, with the device TB/s and share of the bound.
@@ -84,6 +100,9 @@ SERVE = dict(chunk_size=512, page_size=16, max_seq=2048, n_pages=1024,
 HBM_BPS = 3.35e12                          # H100 SXM device memory
 PEAK_FLOPS = {"torch.bfloat16": 989e12,    # dense tensor-core peak
               "torch.float32": 67e12}      # outside the tensor cores
+# queued_us's spin ahead of the timed calls: about 10 ms at the H100's
+# 1.98 GHz, far more than the host takes to issue 50 calls
+SPIN_CYCLES = 20_000_000
 # max |kernel - plain| allowed: f32 differs only by summation order;
 # bf16 outputs may land a rounding or two apart, and one rounding is at
 # most 2^-7 of a value, so the bf16 limit is the smaller of 2e-2 and
@@ -129,6 +148,26 @@ DECODE_BODY = "decode_attention"
 # phase 3e / 4d: the Cluster run's instances, and the request it cancels
 CLUSTER = dict(n_prefill=2, n_decode=2)
 CANCEL = dict(prompt=256, new=256, after=3)
+# phases 2e, 3f-3i, 4e, 5: the full-attention configs beside qwen2.
+# OPT-13B has 2,048 learned positions (positions past them would clamp),
+# so its prompts + 32 new tokens stay below max_seq = 2,048
+OPT_ARCH = "opt_13b"
+OPT_PROMPTS = (64, 2000)
+# Mistral-Nemo with the reference's 4,096-token window, prompts longer
+# than it; n_pages holds every prompt of a prefill batch whole (prefill
+# materializes a request's pages, then trims them as chunks pass)
+NEMO_ARCH = "mistral_nemo_12b"
+NEMO_PROMPTS = (4608, 8192)
+NEMO_SERVE = dict(max_seq=8192 + 64, n_pages=4608)
+# phase 3h: the smaller configs, and DeepSeek-67B at its served() depth
+MORE_ARCHS = ("phi4_mini_3_8b", "granite_moe_3b_a800m", "deepseek_67b")
+MORE_RUN = dict(n=4, new=16)
+# phase 3i / 4e: every second request sampled, with a seed of its own
+SAMPLED = dict(temperature=0.8, top_k=20)
+# phase 4e: 2-layer f32 card-vs-CPU runs; Mistral-Nemo at a 64-token
+# window in 64-token chunks, so tables are trimmed between chunks
+SLICE8_CHECK = dict(n=2, lo=16, hi=64, new=4)
+NEMO_CHECK = dict(window=64, n=2, lo=100, hi=300, new=8, chunk_size=64)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -182,10 +221,13 @@ def make_requests(vocab: int, n: int = N_REQUESTS, lo: int = PROMPT_RANGE[0],
             for i, n_tok in enumerate(lens)]
 
 
-def prefill_geometry(reqs, chunk_size, page_size, max_seq, n_pages):
+def prefill_geometry(reqs, chunk_size, page_size, max_seq, n_pages,
+                     window=0):
     """The chunks the served prefill engine runs, packed as its
     ``_step_paged`` packs them: its scheduler's order, its allocator's
-    tables, its chunk partition.  Returns a list of numpy dicts."""
+    tables (with ``window``, trimmed after every chunk: slid-out slots on
+    the scratch page), its chunk partition.  Returns a list of numpy
+    dicts."""
     from repro_torch.core import chunking
     from repro_torch.core.sched.prefill_scheduler import PrefillScheduler
     from repro_torch.kvcache.paged import PagedAllocator
@@ -193,7 +235,8 @@ def prefill_geometry(reqs, chunk_size, page_size, max_seq, n_pages):
     for r in reqs:
         sched.add(r)
     order = sched.next_batch(sched.sched_batch)
-    alloc = PagedAllocator(n_pages=n_pages, page_size=page_size)
+    alloc = PagedAllocator(n_pages=n_pages, page_size=page_size,
+                           window=window)
     for r in order:
         alloc.alloc(r.rid, r.prompt_len, materialize_all=True)
     trash, width = n_pages, alloc.pages_for(max_seq)
@@ -212,21 +255,27 @@ def prefill_geometry(reqs, chunk_size, page_size, max_seq, n_pages):
             g["q_off"][i] = s.req_start
             g["kv_len"][i] = s.req_start + s.length
         out.append(g)
+        for s in segs:
+            alloc.trim(s.rid, s.req_start + s.length)
     return out
 
 
 def decode_geometry(reqs, page_size, max_seq, n_pages, max_slots,
-                    generated=NEW_TOKENS // 2, empty=0):
+                    generated=NEW_TOKENS // 2, empty=0, window=0):
     """The decode slot batch mid-run: every request ``generated`` tokens
-    in, the last ``empty`` slots free (lens 0, rows on the scratch page)."""
+    in, the last ``empty`` slots free (lens 0, rows on the scratch page);
+    with ``window``, the slots that slid out of it on the scratch page as
+    the decode engine's ``append_token`` leaves them."""
     from repro_torch.kvcache.paged import PagedAllocator
-    alloc = PagedAllocator(n_pages=n_pages, page_size=page_size)
+    alloc = PagedAllocator(n_pages=n_pages, page_size=page_size,
+                           window=window)
     trash, width = n_pages, alloc.pages_for(max_seq)
     bt = np.full((max_slots, width), trash, np.int32)
     lens = np.zeros(max_slots, np.int32)
     for s, r in enumerate(reqs[:max_slots - empty]):
         n = r.prompt_len + generated
-        alloc.alloc(r.rid, n)
+        alloc.alloc(r.rid, n - 1)
+        alloc.append_token(r.rid)
         table = alloc.table_padded(r.rid, trash)
         bt[s, :len(table)] = table
         lens[s] = n
@@ -332,35 +381,46 @@ def decode_args(cfg, g, pools, dtype, device, gen):
             torch.from_numpy(g["lens"]).to(device))
 
 
-def prefill_work(q, k_pool, bt, kv_len, q_off, causal=True):
+def prefill_work(q, k_pool, bt, kv_len, q_off, causal=True, window=0):
     """(bytes, FLOPs) the function needs on these inputs: q read and out
-    written once, each live page's K/V read once, and QK^T + PV for each
-    (query head, key) the length mask (and the causal one) admits."""
+    written once, each live page's K/V read once (with ``window``, from
+    the page of the segment's first in-window key), and QK^T + PV for
+    each (query head, key) the length mask (and the causal and window
+    ones) admits."""
     es = q.element_size()
     segs, sq, h, hd = q.shape
     page, kvh = k_pool.shape[1], k_pool.shape[2]
     kv = kv_len.cpu().numpy().astype(np.int64)
     q0 = q_off.cpu().numpy().astype(np.int64)
-    pages = np.minimum(-(-kv // page), bt.shape[1]).sum()
+    lo = np.maximum(q0 - window + 1, 0) // page if window else 0
+    pages = np.maximum(np.minimum(-(-kv // page), bt.shape[1]) - lo,
+                       0).sum()
     nbytes = (2 * q.numel() * es + pages * page * kvh * 2 * hd * es
               + 4 * (bt.numel() + 2 * segs))
     q_pos = q0[:, None] + np.arange(sq)[None, :]
     if causal:
-        keys = np.minimum(kv[:, None], q_pos + 1).clip(min=0).sum()
+        hi = np.minimum(kv[:, None], q_pos + 1)
+        first = np.maximum(q_pos - window + 1, 0) if window else 0
+        keys = np.maximum(hi - first, 0).sum()
     else:
         keys = (kv * sq).sum()
     return nbytes, int(keys) * h * 4 * hd
 
 
-def decode_work(q, k_pool, bt, lens):
+def decode_work(q, k_pool, bt, lens, window=0):
+    """(bytes, FLOPs): q read and out written once, each live page's K/V
+    read once (with ``window``, the pages of the in-window keys), and
+    QK^T + PV for each (query head, attended key)."""
     es = q.element_size()
     b, h, hd = q.shape
     page, kvh = k_pool.shape[1], k_pool.shape[2]
     ln = lens.cpu().numpy().astype(np.int64)
-    pages = np.minimum(-(-ln // page), bt.shape[1]).sum()
+    lo = np.maximum(ln - window, 0) if window else np.zeros_like(ln)
+    pages = np.maximum(np.minimum(-(-ln // page), bt.shape[1])
+                       - lo // page, 0).sum()
     nbytes = (2 * q.numel() * es + pages * page * kvh * 2 * hd * es
               + 4 * (bt.numel() + b))
-    return nbytes, int(ln.sum()) * h * 4 * hd
+    return nbytes, int((ln - lo).sum()) * h * 4 * hd
 
 
 def bound(nbytes, flops, dtype):
@@ -382,33 +442,69 @@ def dense_kv(k_pool, v_pool, bt, n_keys, rep):
             v.permute(0, 2, 1, 3).repeat_interleave(rep, 1).contiguous())
 
 
-def sdpa_prefill_call(q, k_pool, v_pool, bt, kv_len, q_off, causal=True):
+def window_kv(k_pool, v_pool, bt, lo, n_keys, rep):
+    """Gather each row's keys lo[i] .. lo[i] + n_keys - 1 (clamped to its
+    table) densely, heads expanded to the query heads: (b, h, n_keys,
+    hd), and their positions (b, n_keys)."""
+    import torch
+    page = k_pool.shape[1]
+    tok = lo.long()[:, None] + torch.arange(n_keys, device=bt.device)
+    tok = tok.clamp(max=bt.shape[1] * page - 1)
+    pages = torch.gather(bt.long(), 1, tok // page)
+    k, v = k_pool[pages, tok % page], v_pool[pages, tok % page]
+    return (k.permute(0, 2, 1, 3).repeat_interleave(rep, 1).contiguous(),
+            v.permute(0, 2, 1, 3).repeat_interleave(rep, 1).contiguous(),
+            tok)
+
+
+def sdpa_prefill_call(q, k_pool, v_pool, bt, kv_len, q_off, causal=True,
+                      window=0):
     """One library call computing the prefill function on pre-gathered
     dense K/V with an explicit mask (a yardstick: the port never uses
-    it)."""
+    it); with ``window``, each segment's K/V gathered from its first
+    in-window key."""
     import torch
     import torch.nn.functional as F
     segs, sq, h, hd = q.shape
-    n_keys = max(1, int(kv_len.max()))
-    k, v = dense_kv(k_pool, v_pool, bt, n_keys, h // k_pool.shape[2])
-    k_pos = torch.arange(n_keys, device=q.device)
+    rep = h // k_pool.shape[2]
     q_pos = q_off.long()[:, None] + torch.arange(sq, device=q.device)
-    mask = k_pos[None, None, :] < kv_len.long()[:, None, None]
+    if window:
+        lo = (q_off.long() - window + 1).clamp(min=0)
+        n_keys = max(1, int((kv_len.long() - lo).max()))
+        k, v, k_pos = window_kv(k_pool, v_pool, bt, lo, n_keys, rep)
+        k_pos = k_pos[:, None, :]
+    else:
+        n_keys = max(1, int(kv_len.max()))
+        k, v = dense_kv(k_pool, v_pool, bt, n_keys, rep)
+        k_pos = torch.arange(n_keys, device=q.device)[None, None, :]
+    mask = k_pos < kv_len.long()[:, None, None]
     if causal:
-        mask = mask & (q_pos[:, :, None] >= k_pos[None, None, :])
+        mask = mask & (q_pos[:, :, None] >= k_pos)
+    if window:
+        mask = mask & (k_pos > q_pos[:, :, None] - window)
     mask = mask.expand(segs, sq, n_keys)[:, None]
     qt = q.permute(0, 2, 1, 3).contiguous()
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
 
-def sdpa_decode_call(q, k_pool, v_pool, bt, lens):
+def sdpa_decode_call(q, k_pool, v_pool, bt, lens, window=0):
+    """The decode function as one library call on pre-gathered K/V: each
+    slot's first lens keys, or with ``window`` its in-window keys."""
     import torch
     import torch.nn.functional as F
     b, h, hd = q.shape
-    n_keys = max(1, int(lens.max()))
-    k, v = dense_kv(k_pool, v_pool, bt, n_keys, h // k_pool.shape[2])
-    mask = (torch.arange(n_keys, device=q.device)[None, :]
-            < lens.long()[:, None])[:, None, None]
+    rep = h // k_pool.shape[2]
+    if window:
+        lo = (lens.long() - window).clamp(min=0)
+        n_keys = max(1, int((lens.long() - lo).max()))
+        k, v, k_pos = window_kv(k_pool, v_pool, bt, lo, n_keys, rep)
+        mask = ((k_pos < lens.long()[:, None])
+                & (k_pos >= lo[:, None]))[:, None, None]
+    else:
+        n_keys = max(1, int(lens.max()))
+        k, v = dense_kv(k_pool, v_pool, bt, n_keys, rep)
+        mask = (torch.arange(n_keys, device=q.device)[None, :]
+                < lens.long()[:, None])[:, None, None]
     qt = q[:, :, None]
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
@@ -566,10 +662,11 @@ def host_us(fn, reps: int = 20) -> float:
     return host
 
 
-def device_us(fn, reps: int = 20) -> float:
+def profiler_us(fn, reps: int = 20) -> float:
     """The card's kernel µs a call of ``fn`` by the profiler (every launch
-    of a call summed).  A profiler session can slow later launches on the
-    host, so host times are taken before the first one."""
+    of a call summed), 0 when the session recorded no kernel.  A profiler
+    session can slow later launches on the host, so host times are taken
+    before the first one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -581,33 +678,76 @@ def device_us(fn, reps: int = 20) -> float:
     return sum(e.self_device_time_total for e in prof.key_averages()) / reps
 
 
+def queued_us(fn, reps: int = 20) -> float:
+    """The card's µs a call of ``fn`` by CUDA events around ``reps`` calls
+    queued behind a spin kernel: the card starts the first call only once
+    the host has issued them all, so the host's launch gaps stay out."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / reps
+
+
+def device_us(fn, reps: int = 20, tries: int = 3) -> tuple[float, str]:
+    """The card's µs a call of ``fn`` and how it was read: by the profiler
+    (``profiler_us``), whose session now and then records no kernel at
+    all, so an empty one is taken again, up to ``tries`` sessions; after
+    that by ``queued_us`` ("events")."""
+    for _ in range(tries):
+        us = profiler_us(fn, reps)
+        if us > 0:
+            return us, "profiler"
+    return queued_us(fn, reps), "events"
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
-def check_kernels(cfg, reqs, device, tag="2"):
-    """Phase 2 (2a): kernels 1 and 2 vs their plain versions on the
+def check_kernels(cfg, reqs, device, tag="2", windows=(0, WINDOW),
+                  serve_kw=None, trimmed=False):
+    """Phase 2 (2a, 2e): kernels 1 and 2 vs their plain versions on the
     served shapes at ``cfg``'s attention widths, the scratch page full of
     garbage; kernel 2 also on ``edge_geometry``'s batch for each window.
-    Returns ({kernel: max abs error in bf16, the served dtype}, the
-    prefill chunk geometries, the decode slot geometries)."""
+    ``serve_kw`` overrides SERVE's page size, max_seq, n_pages and
+    chunk size.  With ``trimmed`` each window's shapes are its own served
+    run's: the tables the windowed engines leave, slid-out slots on the
+    scratch page.  Returns ({kernel: max abs error in bf16, the served
+    dtype}, the prefill chunk geometries, the decode slot geometries; of
+    the last window when ``trimmed``)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention)
     from repro_torch.kernels.paged_prefill_attention import (
         paged_prefill_attention)
-    kw = {k: SERVE[k] for k in ("page_size", "max_seq", "n_pages")}
-    chunks = prefill_geometry(reqs, SERVE["chunk_size"], **kw)
-    slot_cases = [decode_geometry(reqs, max_slots=SERVE["max_slots"],
-                                  empty=e, **kw) for e in (0, 3)]
+    opts = dict(SERVE, **(serve_kw or {}))
+    kw = {k: opts[k] for k in ("page_size", "max_seq", "n_pages")}
+
+    def geometry(window):
+        return (prefill_geometry(reqs, opts["chunk_size"], window=window,
+                                 **kw),
+                [decode_geometry(reqs, max_slots=opts["max_slots"],
+                                 empty=e, window=window, **kw)
+                 for e in (0, 3)])
+    geo = {w: geometry(w if trimmed else 0) for w in windows}
+    chunks, slot_cases = geo[windows[-1]]
     gen = torch.Generator(device=device).manual_seed(SEED)
     pre, dec = "paged_prefill_attention", "paged_decode_attention"
     for dtype in (torch.float32, torch.bfloat16):
-        pools = random_pools(cfg, SERVE["n_pages"], SERVE["page_size"],
+        pools = random_pools(cfg, opts["n_pages"], opts["page_size"],
                              dtype, device, gen, garbage=True)
         worst = {}
-        for window in (0, WINDOW):
-            edge = edge_geometry(max_slots=SERVE["max_slots"],
+        for window in windows:
+            chunks, slot_cases = geo[window]
+            edge = edge_geometry(max_slots=opts["max_slots"],
                                  window=window, **kw)
             for g in chunks:
                 args = prefill_args(cfg, g, pools, dtype, device, gen)
@@ -632,9 +772,9 @@ def check_kernels(cfg, reqs, device, tag="2"):
                  f"{len(slot_cases)} served shapes + the edge batch")
             print(f"phase {tag}: {name} vs plain, {cfg.name}, {dtype}, "
                   f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
-                  f"{cfg.resolved_head_dim}, {n} x window 0/{WINDOW}: max "
-                  f"abs err {err:.3e}, at most {share:.3f} of a case's "
-                  "limit (limit())")
+                  f"{cfg.resolved_head_dim}, {n} x window "
+                  f"{'/'.join(map(str, windows))}: max abs err {err:.3e}, "
+                  f"at most {share:.3f} of a case's limit (limit())")
     return {k: v[0] for k, v in worst.items()}, chunks, slot_cases
 
 
@@ -885,21 +1025,23 @@ class TieRecorder:
         MLP.moe_forward, M.prefill_paged, M.decode_logits_paged = self._saved
 
 
-def serve(cfg, params, reqs, device, time_it=False, n_pages=None):
-    """Drive the port's engines over ``reqs`` (``n_pages`` a pool, the
-    SERVE value unless given); returns (tokens by rid, prefill engine,
-    decode engine, prefill seconds, decode seconds)."""
+def serve(cfg, params, reqs, device, time_it=False, watch=None, **over):
+    """Drive the port's engines over ``reqs`` with the SERVE settings
+    (``over`` replaces any of them); ``watch(pk)`` sees each prefilled
+    payload and ``watch(de)`` the decode engine after each admission.
+    Returns (tokens by rid, prefill engine, decode engine, prefill
+    seconds, decode seconds)."""
     import torch
     from repro_torch.core.decode_engine import DecodeEngine
     from repro_torch.core.prefill_engine import PrefillEngine
-    n_pages = n_pages or SERVE["n_pages"]
+    opts = dict(SERVE, **{k: v for k, v in over.items() if v is not None})
     pe = PrefillEngine("p0", cfg, params, device=device,
-                       chunk_size=SERVE["chunk_size"],
-                       max_seq=SERVE["max_seq"], n_pages=n_pages,
-                       page_size=SERVE["page_size"])
+                       chunk_size=opts["chunk_size"],
+                       max_seq=opts["max_seq"], n_pages=opts["n_pages"],
+                       page_size=opts["page_size"])
     de = DecodeEngine("d0", cfg, params, device=device,
-                      max_slots=SERVE["max_slots"], max_seq=SERVE["max_seq"],
-                      n_pages=n_pages, page_size=SERVE["page_size"])
+                      max_slots=opts["max_slots"], max_seq=opts["max_seq"],
+                      n_pages=opts["n_pages"], page_size=opts["page_size"])
     for r in reqs:
         pe.submit(r)
     out, t, t_pre, t_dec = {}, 0.0, 0.0, 0.0
@@ -911,8 +1053,12 @@ def serve(cfg, params, reqs, device, time_it=False, n_pages=None):
         sync()
         t1 = time.perf_counter()
         for pk in done:
+            if watch is not None:
+                watch(pk)
             de.receive(pk, now=t)
         de.admit(t)
+        if watch is not None:
+            watch(de)
         for f in de.step(t):
             out[f.req.rid] = f.tokens
         sync()
@@ -1003,27 +1149,29 @@ def check_bodies(tag, launches, dtype):
 
 
 def serve_phase(tag, cfg, params, device, kernels, card,
-                prompts=PROMPT_RANGE, enc=None, n_pages=None):
-    """Phase 3/3b/3c/3d: warm up, then serve the N_REQUESTS requests
-    (tokens drawn in ``cfg``'s vocabulary, prompt lengths in
-    ``prompts``, frontend embeddings ``enc``) with every launch counter
-    set to 0 just before and read just after.  Checks the run (every
-    bf16 launch of kernels 1, 5 and 3 on the tensor-core body) and prints
-    its numbers; returns (launches by kernel as ``read_launches`` gives
-    them, prefill engine, decode engine)."""
-    reqs = make_requests(cfg.vocab_size, lo=prompts[0], hi=prompts[1],
-                         enc=enc)
+                prompts=PROMPT_RANGE, enc=None, n=N_REQUESTS,
+                new=NEW_TOKENS, watch=None, **over):
+    """Phase 3/3b-3d/3f-3h: warm up, then serve ``n`` requests of ``new``
+    tokens (tokens drawn in ``cfg``'s vocabulary, prompt lengths in
+    ``prompts``, frontend embeddings ``enc``; ``over`` replaces SERVE
+    settings, ``watch`` as in serve) with every launch counter set to 0
+    just before and read just after.  Checks the run (every bf16 launch
+    of kernels 1, 5 and 3 on the tensor-core body) and prints its
+    numbers; returns (launches by kernel as ``read_launches`` gives them,
+    prefill engine, decode engine)."""
+    reqs = make_requests(cfg.vocab_size, n=n, lo=prompts[0], hi=prompts[1],
+                         new=new, enc=enc)
     warm = make_requests(cfg.vocab_size, n=1, lo=64, hi=64, new=2)
     # warm-up: libraries, cuBLAS
-    serve(cfg, params, warm, device, n_pages=n_pages)
+    serve(cfg, params, warm, device, **over)
     zero_launches(kernels)
     out, pe, de, t_pre, t_dec = serve(cfg, params, reqs, device,
-                                      time_it=True, n_pages=n_pages)
+                                      time_it=True, watch=watch, **over)
     launches = read_launches(kernels)
     check_bodies(tag, launches, cfg.dtype)
     check(len(out) == len(reqs), f"{len(out)} of {len(reqs)} finished")
     for rid, toks in out.items():
-        check(len(toks) == NEW_TOKENS, f"{rid}: {len(toks)} tokens")
+        check(len(toks) == new, f"{rid}: {len(toks)} tokens")
         check(all(0 <= x < cfg.vocab_size for x in toks), f"{rid}: token "
               "out of the vocabulary")
     check(pe.alloc.used_pages == 0 and de.alloc.used_pages == 0,
@@ -1301,6 +1449,244 @@ def cluster_phase(cfg, params, device, kernels, card):
     return launches
 
 
+def slice8_configs():
+    """The runs of phases 2e and 3f-3h, each config as it is served
+    (OPT-13B whole, Mistral-Nemo whole with its window, Phi-4-mini and
+    Granite whole, DeepSeek-67B at ``served()``'s depth): dicts of the
+    config, its requests' ``run`` (make_requests' n, lo, hi, new), the
+    SERVE overrides ``over``, and the kernel check's ``windows`` and
+    ``trimmed``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs import deepseek_67b, mistral_nemo_12b
+    nemo = mistral_nemo_12b.windowed()
+    full = dict(n=N_REQUESTS, new=NEW_TOKENS)
+    out = [dict(cfg=get_config(OPT_ARCH), over={}, windows=(0, WINDOW),
+                trimmed=False, run=dict(full, lo=OPT_PROMPTS[0],
+                                        hi=OPT_PROMPTS[1])),
+           dict(cfg=nemo, over=NEMO_SERVE, windows=(0, nemo.sliding_window),
+                trimmed=True, run=dict(full, lo=NEMO_PROMPTS[0],
+                                       hi=NEMO_PROMPTS[1]))]
+    for arch in MORE_ARCHS:
+        cfg = (deepseek_67b.served() if arch == "deepseek_67b"
+               else get_config(arch))
+        out.append(dict(cfg=cfg, over={}, windows=(0, WINDOW),
+                        trimmed=False,
+                        run=dict(MORE_RUN, lo=PROMPT_RANGE[0],
+                                 hi=PROMPT_RANGE[1])))
+    return out
+
+
+def check_slice8_kernels(device):
+    """Phase 2e: kernels 1 and 2 vs their plain versions, f32 and bf16,
+    at the served shapes of OPT-13B (40/40 heads of 128, rep 1),
+    Mistral-Nemo (32/8 of 128, rep 4, window 0 and its 4,096 on the
+    windowed run's trimmed tables), Phi-4-mini (24/8 of 128, rep 3),
+    Granite (24/8 of 64, rep 3) and DeepSeek-67B (64/8 of 128, rep 8),
+    with the garbage scratch page and the edge slot batch.  Returns
+    ({kernel: max abs error in bf16}, {config name: (prefill chunks,
+    decode slot batches)})."""
+    errs, geo = {}, {}
+    for run in slice8_configs():
+        cfg = run["cfg"]
+        worst, *geo[cfg.name] = check_kernels(
+            cfg, make_requests(cfg.vocab_size, **run["run"]), device,
+            tag="2e", windows=run["windows"], serve_kw=run["over"],
+            trimmed=run["trimmed"])
+        for name, err in worst.items():
+            errs[name] = max(errs.get(name, 0.0), err)
+    return errs, geo
+
+
+def full_attention_phase(tag, run, device, kernels, card, watch=None):
+    """Phases 3f-3h: ``run["cfg"]`` (one of slice8_configs) in bf16 with
+    random weights from SEED, served through the engines over its
+    requests (SERVE overridden by its ``over``).  Besides serve_phase's
+    checks: kernel 1
+    launched n_layers x fused calls times, kernel 2 n_layers x
+    iterations, kernels 3-5 never; the wire carried Σ kv_page_bytes of
+    the prompts (windowed for a windowed config).  Returns (launches,
+    wire bytes)."""
+    import torch
+    from repro_torch.core.kv_transfer import kv_page_bytes
+    from repro_torch.models import model as M
+    cfg, rq = run["cfg"], run["run"]
+    reqs = make_requests(cfg.vocab_size, **rq)
+    max_seq = dict(SERVE, **run["over"])["max_seq"]
+    check(rq["hi"] + rq["new"] < max_seq and (
+        not cfg.n_positions or max_seq <= cfg.n_positions),
+        f"phase {tag}: prompts up to {rq['hi']} + {rq['new']} new tokens "
+        f"in max_seq {max_seq}, {cfg.n_positions} learned positions")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(SEED), device)
+    torch.cuda.synchronize()
+    lens = [r.prompt_len for r in reqs]
+    print(f"phase {tag}: {cfg.name}, {cfg.n_layers} layers, full width "
+          f"(d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, window "
+          f"{cfg.sliding_window}), {count_params(params) / 1e9:.2f} G "
+          f"parameters in bf16, drawn in {time.perf_counter() - t0:.1f} s; "
+          f"{len(reqs)} requests of {reqs[0].decode_len} new tokens, "
+          f"prompts {lens}")
+    launches, pe, de = serve_phase(
+        tag, cfg, params, device, kernels, card,
+        prompts=(rq["lo"], rq["hi"]), n=rq["n"], new=rq["new"],
+        watch=watch, **run["over"])
+    nl, fused, iters = cfg.n_layers, pe.fused_calls, de.iterations
+    check(launches["paged_prefill_attention"] == nl * fused > 0
+          and launches["paged_decode_attention"] == nl * iters > 0
+          and launches["paged_mla_decode_attention"] == 0
+          and launches["paged_cross_decode_attention"] == 0
+          and launches["chunked_prefill_attention"] == 0,
+          f"phase {tag}: launches {launches}, {fused} fused calls, {iters} "
+          "iterations")
+    ps = SERVE["page_size"]
+    wire = sum(kv_page_bytes(cfg, r.prompt_len, ps) for r in reqs)
+    check(pe.network.bytes_sent == wire, f"phase {tag}: "
+          f"{pe.network.bytes_sent} bytes sent, expected {wire}")
+    del params, pe, de
+    torch.cuda.empty_cache()
+    return launches, wire
+
+
+def windowed_phase(run, device, kernels, card):
+    """Phase 3g: Mistral-Nemo whole with its window: full_attention_phase
+    plus the window's own checks: every payload and every decoding slot
+    holds at most pages_for(window) + 1 pages, and the windowed wire
+    bytes are below the unwindowed sum."""
+    from repro_torch.core.decode_engine import DecodeEngine
+    from repro_torch.core.kv_transfer import kv_page_bytes
+    cfg = run["cfg"]
+    reqs = make_requests(cfg.vocab_size, **run["run"])
+    w, ps = cfg.sliding_window, SERVE["page_size"]
+    bound = -(-w // ps) + 1
+    held = {"payload": 0, "decoding": 0}
+
+    def watch(x):
+        if isinstance(x, DecodeEngine):
+            for st in x.slots.values():
+                held["decoding"] = max(held["decoding"],
+                                       x.alloc.pages_held(st.req.rid))
+        else:
+            held["payload"] = max(held["payload"], x.pages_k.shape[1])
+    _, wire = full_attention_phase("3g", run, device, kernels, card, watch)
+    full = sum(kv_page_bytes(dataclasses.replace(cfg, sliding_window=0),
+                             r.prompt_len, ps) for r in reqs)
+    check(0 < held["payload"] <= bound and 0 < held["decoding"] <= bound,
+          f"phase 3g: pages held {held}, bound pages_for({w}) + 1 = "
+          f"{bound}")
+    check(wire < full, f"phase 3g: windowed wire {wire} >= unwindowed "
+          f"{full}")
+    print(f"phase 3g: at most {held['payload']} pages shipped and "
+          f"{held['decoding']} held by a decoding slot (bound {bound}); "
+          f"wire {wire} bytes against {full} unwindowed "
+          f"({wire / full:.3f})")
+
+
+def sampled_requests(vocab, greedy_only=False):
+    """make_requests' requests, every second one sampled (SAMPLED, seed
+    SEED + 100 + i) unless ``greedy_only``."""
+    from repro_torch.runtime.request import SamplingParams
+    reqs = make_requests(vocab)
+    if not greedy_only:
+        for i, r in enumerate(reqs):
+            if i % 2:
+                r.sampling = SamplingParams(max_new_tokens=NEW_TOKENS,
+                                            seed=SEED + 100 + i, **SAMPLED)
+    return reqs
+
+
+def sampling_phase(cfg, params, device, card):
+    """Phase 3i: full-width ``cfg`` (bf16), the N_REQUESTS requests with
+    every second one sampled: two mixed runs give the same streams, the
+    greedy requests those of an all-greedy run of the same requests,
+    and some sampled stream parts from greedy.  Mixed and all-greedy
+    runs alternate, two each, for their decode seconds."""
+    import torch
+    from repro_torch.models.model import sample_tokens
+    runs = []
+    for greedy_only in (False, True, False, True):
+        out, _, _, _, t_dec = serve(cfg, params, sampled_requests(
+            cfg.vocab_size, greedy_only=greedy_only), device, time_it=True)
+        check(len(out) == N_REQUESTS and all(
+            len(t) == NEW_TOKENS for t in out.values()), "phase 3i: not "
+            "every request finished with its tokens")
+        runs.append((out, t_dec))
+    (mixed, t_mixed), (pure, t_pure), (again, t_again), (pure2, t_pure2) = \
+        runs
+    check(pure == pure2, "phase 3i: two all-greedy runs differ")
+    rids = sorted(mixed, key=lambda r: int(r[1:]))
+    greedy = [r for i, r in enumerate(rids) if i % 2 == 0]
+    sampled = [r for i, r in enumerate(rids) if i % 2]
+    check(mixed == again, "phase 3i: two mixed runs differ")
+    check(all(mixed[r] == pure[r] for r in greedy), "phase 3i: a greedy "
+          "request's tokens changed beside sampled ones")
+    parted = sum(mixed[r] != pure[r] for r in sampled)
+    check(parted > 0, "phase 3i: no sampled stream parts from greedy")
+    # one selection step alone, at the decode batch and the vocabulary:
+    # sample_tokens on half-sampled lanes against the greedy argmax
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    ms = SERVE["max_slots"]
+    logits = torch.randn((ms, cfg.vocab_size), generator=gen,
+                         device=device).to(torch.bfloat16)
+    lanes = torch.arange(ms, device=device) % 2 == 1
+    temps = torch.where(lanes, SAMPLED["temperature"], 0.0)
+    tks = torch.where(lanes, SAMPLED["top_k"], 0).to(torch.int32)
+    seeds = torch.arange(ms, device=device, dtype=torch.int64) + 7
+
+    def select():
+        return sample_tokens(logits, temps, tks, seeds)
+
+    def argmax():
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    # (no profiler here: a profiler session can slow phase 5's host
+    # times, which come first)
+    t_sel = [cuda_ms(select), host_us(select)]
+    t_arg = [cuda_ms(argmax), host_us(argmax)]
+    print(f"phase 3i: {cfg.name} bf16, {len(greedy)} greedy + "
+          f"{len(sampled)} sampled requests (temperature "
+          f"{SAMPLED['temperature']}, top_k {SAMPLED['top_k']}): two runs "
+          f"identical, greedy streams equal the all-greedy run's, "
+          f"{parted} of {len(sampled)} sampled streams part from greedy; "
+          f"decode in turns: mixed {t_mixed:.3f} s, greedy {t_pure:.3f} s, "
+          f"mixed {t_again:.3f} s, greedy {t_pure2:.3f} s ({card})")
+    print(f"phase 3i: one selection step, {ms} slots x {cfg.vocab_size}: "
+          f"sample_tokens {t_sel[0]:.4f} ms, host {t_sel[1]:.1f} µs a "
+          f"call; argmax {t_arg[0]:.4f} ms, host {t_arg[1]:.1f} µs "
+          f"({card})")
+
+
+def vs_cpu(tag, cfg, device, reqs_fn, seed, **over):
+    """Phase 4e: ``cfg`` (f32) with weights drawn on the card and copied
+    to the CPU, the requests ``reqs_fn()`` gives served on both: the same
+    token streams, first-chunk logits within LOGIT_TOL."""
+    import torch
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    gpu_params = M.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
+    cpu_params = to_device(gpu_params, "cpu")
+    runs = []
+    for dev, params in ((device, gpu_params), ("cpu", cpu_params)):
+        with FirstLogits() as first:
+            out = serve(cfg, params, reqs_fn(), dev, **over)[0]
+        runs.append((out, first.logits))
+    (out_gpu, lg_gpu), (out_cpu, lg_cpu) = runs
+    lerr = float((lg_gpu - lg_cpu).abs().max())
+    check(len(out_gpu) == len(reqs_fn()), f"phase 4e: {cfg.name}: not "
+          "every request finished")
+    check(out_gpu == out_cpu, f"phase 4e: {cfg.name}: device and CPU runs "
+          "emit different tokens")
+    check(lerr <= LOGIT_TOL, f"phase 4e: {cfg.name}: first-chunk logits "
+          f"differ by {lerr}")
+    print(f"phase 4e: {tag}: {cfg.n_layers}-layer f32 device vs CPU: "
+          f"{len(out_gpu)} token streams identical, first-chunk logits "
+          f"max abs err {lerr:.3e} (tolerance {LOGIT_TOL:g}), "
+          f"{time.perf_counter() - t0:.1f} s")
+    del gpu_params, cpu_params
+    torch.cuda.empty_cache()
+
+
 # phase 5's rows, timed on the card by profile_rows once every row's
 # CUDA-event and host times are taken
 TIMED = []
@@ -1356,10 +1742,13 @@ def profile_rows(card):
     """Phase 5's second pass: each TIMED row's kernel µs a call on the
     card (``device_us``), its device TB/s and share of its bound."""
     for name, tm, cases, kern, nbytes in TIMED:
-        dev = sum(device_us(lambda: kern(*a)) for a in cases) / len(cases)
-        check(dev > 0, f"phase 5: {name}: the profiler saw no kernel")
-        tm["device_us"] = dev
-        print(f"phase 5: {name}: device {dev:.1f} µs a call (profiler), "
+        reads = [device_us(lambda: kern(*a)) for a in cases]
+        dev = sum(us for us, _ in reads) / len(cases)
+        via = "+".join(sorted({how for _, how in reads}))
+        check(all(us > 0 for us, _ in reads),
+              f"phase 5: {name}: no device time ({via})")
+        tm["device_us"], tm["device_by"] = dev, via
+        print(f"phase 5: {name}: device {dev:.1f} µs a call ({via}), "
               f"{nbytes / (dev * 1e6):.3f} TB/s, "
               f"{100 * tm['bound_ms'] * 1e3 / dev:.1f}% of the bound; "
               f"host {tm['host_us']:.1f} µs ({card})")
@@ -1451,6 +1840,10 @@ def main() -> int:
     # Llama-3.2-Vision's widths
     dense_launches, errs["chunked_prefill_attention"] = check_dense_kernel(
         [cfg, vlm_cfg], device, kernels)
+    # 2e: kernels 1 and 2 at the served shapes of the slice-8 configs
+    slice8_errs, slice8_geo = check_slice8_kernels(device)
+    for name, err in slice8_errs.items():
+        errs[name] = max(errs[name], err)
 
     # -- phase 3: serve full-width qwen2-0.5b in bf16 --------------------
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -1465,6 +1858,8 @@ def main() -> int:
     del pe, de
     # -- phase 3e: the same weights through the serving API -------------
     cluster_phase(cfg, params, device, kernels, card)
+    # -- phase 3i: the same weights, every second request sampled --------
+    sampling_phase(cfg, params, device, card)
     del params
     torch.cuda.empty_cache()
 
@@ -1501,8 +1896,15 @@ def main() -> int:
     # -- phase 3d: serve Whisper-tiny whole, bf16 -------------------------
     cross_serve_phase("3d", wh_cfg, device, kernels, card, WHISPER_PROMPTS)
 
+    # -- phases 3f-3h: the full-attention configs, bf16 -------------------
+    opt_run, nemo_run, *more_runs = slice8_configs()
+    full_attention_phase("3f", opt_run, device, kernels, card)
+    windowed_phase(nemo_run, device, kernels, card)
+    for run in more_runs:
+        full_attention_phase("3h", run, device, kernels, card)
+
     # -- phase 4: device vs CPU, 2 layers, f32 ---------------------------
-    # (phases 4-4d run kernels 1, 5 and 3 in f32 only: their counters,
+    # (phases 4-4e run kernels 1, 5 and 3 in f32 only: their counters,
     # set to 0 here, must show no launch on the tensor-core body)
     zero_launches(kernels)
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
@@ -1534,6 +1936,16 @@ def main() -> int:
           f"{len(records[0])} requests with identical token streams, "
           f"virtual timestamps and instance assignment, "
           f"{time.perf_counter() - t0:.1f} s")
+    # -- phase 4e: phase 3i's mixed batch, 2 layers, f32, card vs CPU -----
+    t0 = time.perf_counter()
+    outs = [serve(cfg2, params, sampled_requests(cfg.vocab_size), dev)[0]
+            for dev, params in ((device, gpu_params), ("cpu", cpu_params))]
+    check(outs[0] == outs[1], "phase 4e: the mixed greedy / sampled batch "
+          "differs between the card and the CPU")
+    print(f"phase 4e: {cfg.name} 2-layer f32, {N_REQUESTS // 2} greedy + "
+          f"{N_REQUESTS // 2} sampled requests: card and CPU streams "
+          f"identical, sampled lanes included, "
+          f"{time.perf_counter() - t0:.1f} s")
     del gpu_params, cpu_params
 
     # -- phase 4b: DeepSeek-V2 device vs CPU, 2 layers, f32 --------------
@@ -1545,11 +1957,24 @@ def main() -> int:
     cross_vs_cpu(dataclasses.replace(vlm_cfg, n_layers=VLM_CHECK_LAYERS),
                  device)
     torch.cuda.empty_cache()
+    # -- phase 4e: OPT-13B and windowed Mistral-Nemo, 2 layers, f32 -------
+    opt2 = dataclasses.replace(opt_run["cfg"], n_layers=2, dtype="float32")
+    vs_cpu("OPT-13B", opt2, device, lambda: make_requests(
+        opt2.vocab_size, **SLICE8_CHECK), SEED + 10)
+    nc = dict(NEMO_CHECK)
+    nemo2 = dataclasses.replace(nemo_run["cfg"], n_layers=2,
+                                dtype="float32",
+                                sliding_window=nc.pop("window"))
+    vs_cpu(f"Mistral-Nemo, window {nemo2.sliding_window}, chunks of "
+           f"{nc['chunk_size']}", nemo2, device,
+           lambda: make_requests(nemo2.vocab_size, n=nc["n"], lo=nc["lo"],
+                                 hi=nc["hi"], new=nc["new"]),
+           SEED + 11, chunk_size=nc["chunk_size"])
     f32_launches = read_launches(kernels)
-    check_bodies("4-4d", f32_launches, "float32")
-    check(f32_launches["paged_prefill_attention"] > 0, "phases 4-4d: "
+    check_bodies("4-4e", f32_launches, "float32")
+    check(f32_launches["paged_prefill_attention"] > 0, "phases 4-4e: "
           f"kernel 1 never launched: {f32_launches}")
-    print(f"phases 4-4d: launches {f32_launches}: every f32 launch of "
+    print(f"phases 4-4e: launches {f32_launches}: every f32 launch of "
           "kernels 1 and 3 on the CUDA-core body")
 
     # -- phase 5: kernel times at the served shapes (bf16) ---------------
@@ -1648,6 +2073,36 @@ def main() -> int:
                 chunked_prefill_attention, ref.chunked_prefill_attention,
                 sdpa_dense_call, lambda a: dense_work(*a), dtype, card,
                 chunked_prefill_attention)
+    # kernels 1 and 2 at OPT-13B's served shapes (rep 1) and windowed
+    # Mistral-Nemo's (rep 4, the window's trimmed tables; its library
+    # calls read the pre-gathered in-window K/V)
+    for run in (opt_run, nemo_run):
+        c, w = run["cfg"], run["cfg"].sliding_window
+        pools8 = random_pools(c, dict(SERVE, **run["over"])["n_pages"],
+                              SERVE["page_size"], dtype, device, gen)
+        g_chunks, g_slots = slice8_geo[c.name]
+        # at most 8 of the chunks, evenly spaced over the run
+        g_chunks = g_chunks[::max(1, len(g_chunks) // 8)][:8]
+        tag = f"{c.name}" + (f", window {w}" if w else "")
+        time_kernel(
+            f"paged_prefill_attention, {tag}",
+            [prefill_args(c, g, pools8, dtype, device, gen)
+             for g in g_chunks],
+            lambda *a, w=w: paged_prefill_attention(*a, window=w),
+            lambda *a, w=w: ref.paged_prefill_attention(*a, window=w),
+            lambda *a, w=w: sdpa_prefill_call(*a, window=w),
+            lambda a, w=w: prefill_work(a[0], a[1], *a[3:], window=w),
+            dtype, card, paged_prefill_attention)
+        time_kernel(
+            f"paged_decode_attention, {tag}",
+            [decode_args(c, g, pools8, dtype, device, gen)
+             for g in g_slots[:1]],
+            lambda *a, w=w: paged_decode_attention(*a, window=w),
+            lambda *a, w=w: ref.paged_decode_attention(*a, window=w),
+            lambda *a, w=w: sdpa_decode_call(*a, window=w),
+            lambda a, w=w: decode_work(a[0], a[1], *a[3:], window=w),
+            dtype, card, body=DECODE_BODY)
+        del pools8
     profile_rows(card)
     launches["paged_mla_decode_attention"] = ds_launches[
         "paged_mla_decode_attention"]
@@ -1666,7 +2121,8 @@ def main() -> int:
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
             "body": tm["body"], "tflops": tm["tflops"],
-            "host_us": tm["host_us"], "device_us": tm["device_us"]})
+            "host_us": tm["host_us"], "device_us": tm["device_us"],
+            "device_by": tm["device_by"]})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

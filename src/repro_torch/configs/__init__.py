@@ -3,9 +3,13 @@
 ``get_config(arch_id)`` returns the full-size ModelConfig;
 ``get_smoke_config(arch_id)`` the reduced same-family variant used by the
 CPU tests.  Only the architectures whose paths are ported are listed:
-qwen2-0.5b (paged GQA), DeepSeek-V2 (MLA latent pages and routed MoE),
-and Llama-3.2-Vision-11B and Whisper-tiny (read-only cross-attention
-pages).  The others come with their slices.
+the full-attention GQA models (qwen2-0.5b, Phi-4-mini, Mistral-Nemo,
+DeepSeek-67B, OPT-13B, and Granite-MoE with its routed experts),
+DeepSeek-V2 (MLA latent pages and routed MoE), and Llama-3.2-Vision-11B
+and Whisper-tiny (read-only cross-attention pages).  The others come
+with their slices: recurrentgemma-9b and xlstm-1.3b with the dense and
+recurrent backends (ROADMAP A.11), opt-125m-cls with the classifier
+(A.13).
 """
 from __future__ import annotations
 
@@ -13,8 +17,13 @@ import importlib
 
 from repro_torch.models.config import ModelConfig, reduced
 
-ARCH_IDS = ("qwen2_0_5b", "deepseek_v2_236b", "llama_3_2_vision_11b",
-            "whisper_tiny")
+ARCH_IDS = ("qwen2_0_5b", "llama_3_2_vision_11b", "phi4_mini_3_8b",
+            "whisper_tiny", "deepseek_v2_236b", "mistral_nemo_12b",
+            "deepseek_67b", "granite_moe_3b_a800m", "opt_13b")
+# the reference's other architectures, and the ROADMAP item that ports
+# each one's path
+PENDING = {"recurrentgemma_9b": "A.11", "xlstm_1_3b": "A.11",
+           "opt_125m_cls": "A.13"}
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 
@@ -27,9 +36,10 @@ def canonical(arch_id: str) -> str:
 def _module(arch_id: str):
     name = canonical(arch_id)
     if name not in ARCH_IDS:
+        item = PENDING.get(name, "queue A")
         raise NotImplementedError(
             f"{arch_id}: not ported yet; its config comes with the slice "
-            "that ports its attention path (see ROADMAP.md queue A)")
+            f"that ports its path (ROADMAP.md {item})")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -9,10 +9,11 @@ scalars per token per layer: 576 for DeepSeek-V2).  VLM and
 encoder-decoder archs get ``cross="pages"``: the encoder K/V of every
 cross layer lives in read-only pages of the same GQA pool, addressed
 by a second per-request block table, prefilled once and freed with the
-request.  A config or request that needs another backend — the dense
-backend (recurrent/hybrid archs) or sliding-window paging — raises
-``NotImplementedError`` naming the slice that brings it; nothing falls
-back quietly.
+request.  A sliding-window config pages too: ``window`` carries its
+window to the engines' allocators, which free the pages that slide
+wholly out of it.  A config or request that needs the dense backend
+(recurrent/hybrid archs) raises ``NotImplementedError`` naming the
+slice that brings it; nothing falls back quietly.
 """
 from __future__ import annotations
 
@@ -41,17 +42,14 @@ class BackendSpec:
 
 def backend_for(cfg: ModelConfig, requested: str = "auto") -> BackendSpec:
     """Resolve the execution backend for ``cfg`` (paged, GQA or MLA
-    latent layout, cross pages for cross-attention archs)."""
+    latent layout, full or sliding-window, cross pages for
+    cross-attention archs)."""
     if requested not in ("auto", "paged", "dense"):
         raise ValueError(f"unknown backend {requested!r}")
     if requested == "dense":
         raise NotImplementedError(
             "dense backend: comes with the dense and recurrent backends "
             "slice")
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window paging comes with the "
-            "sliding-window slice")
     if not M.paged_supported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: block kinds {sorted(set(cfg.layer_kinds))} need "
@@ -64,7 +62,8 @@ def backend_for(cfg: ModelConfig, requested: str = "auto") -> BackendSpec:
         layout = "gqa"
         width = 2 * cfg.n_kv_heads * cfg.resolved_head_dim
     cross = "pages" if cfg.n_cross_layers else "none"
-    return BackendSpec(backend="paged", layout=layout, window=0,
+    return BackendSpec(backend="paged", layout=layout,
+                       window=cfg.sliding_window,
                        token_width=width,
                        page_token_bytes=width * dtype_bytes, cross=cross,
                        cross_ctx=cfg.cross_ctx if cross != "none" else 0,

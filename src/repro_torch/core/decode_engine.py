@@ -9,22 +9,26 @@ against the paged-KV allocator.  K/V lives in a shared device
 and a block-table row, every iteration runs the full slot batch through
 the CUDA paged-decode kernel (the paged MLA decode kernel over latent
 pages for MLA configs), block tables grow page-at-a-time via the
-allocator's ``append_token``, and argmax stays on the device (one int
-per slot crosses to the host).  Cross-attention archs (VLM / enc-dec)
+allocator's ``append_token`` (which also frees the pages that slid out
+of a sliding window, so a windowed slot holds O(window) pages), and
+token selection stays on the device (one int per slot crosses to the
+host).  Cross-attention archs (VLM / enc-dec)
 install the shipped encoder pages once at admission, in the same
 scatter as the self pages; every iteration reads them through a second
 block table (the cross decode kernel; nothing is scattered into them)
 and they are freed exactly once when the request finishes.
 
 The model runs on ``device`` ("cuda" unless the caller asks for "cpu");
-``params`` must live there.  Decoding is greedy: a request whose
-``SamplingParams`` asks for sampling raises ``NotImplementedError``
-(on-device sampling is a later slice), as do the dense backend and the
-prefix cache.
+``params`` must live there.  A batch where some request's
+``SamplingParams`` asks for sampling (temperature > 0) passes per-slot
+temperatures, top-k and step seeds to ``model.sample_tokens``; a
+greedy batch takes the plain argmax call.  The dense backend and the
+prefix cache raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -39,6 +43,14 @@ from repro_torch.kvcache.paged import PagedAllocator
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.request import Phase, Request
+
+
+def _step_seed(seed: int, n_generated: int) -> int:
+    """Per-(request, step) seed for on-device sampling, the reference's:
+    derived from the request's ``SamplingParams.seed`` and how many
+    tokens it has generated, never from the decode slot or the batch,
+    so a request's sample stream is the same in any slot or batch."""
+    return zlib.crc32(f"{seed}:{n_generated}".encode()) & 0xFFFFFFFF
 
 
 @dataclasses.dataclass
@@ -69,6 +81,7 @@ class DecodeEngine:
         self.backend = self.spec.backend
         self.enc_ctx = self.spec.cross_ctx
         self.alloc = PagedAllocator(n_pages=n_pages, page_size=page_size,
+                                    window=cfg.sliding_window,
                                     cross_tokens=self.enc_ctx)
         self.scheduler = DecodeScheduler(self.alloc, policy=policy,
                                          max_batch=max_slots)
@@ -91,12 +104,6 @@ class DecodeEngine:
         """Receiver module: prefilled KV has arrived (post transfer wait).
         ``now`` (when the caller tracks time) stamps the transfer-done
         timestamp that ``summarize`` turns into ``avg_transfer``."""
-        sp = pk.req.sampling
-        if sp is not None and not sp.greedy:
-            raise NotImplementedError(
-                f"{pk.req.rid}: sampled decoding (temperature "
-                f"{sp.temperature}) comes with the on-device sampling "
-                "slice; the port decodes greedily")
         # block-table rows are sized for max_seq; the finish condition in
         # step() keeps every admitted sequence inside that bound
         if pk.req.prompt_len >= self.max_seq:
@@ -251,15 +258,31 @@ class DecodeEngine:
             src, dst = zip(*cows)
             self.pool.copy_pages(list(src), list(dst))
         dev = self.device
-        cross_args = {}
+        extra = {}
         if cross:
-            cross_args = dict(cross_bt=to_device(cbt, dev),
-                              cross_len=to_device(clens, dev))
+            extra = dict(cross_bt=to_device(cbt, dev),
+                         cross_len=to_device(clens, dev))
+        # on-device sampling only when a resident request asks for it: a
+        # greedy batch takes the plain argmax call
+        if any(st.req.sampling is not None and not st.req.sampling.greedy
+               for st in self.slots.values()):
+            temps = np.zeros((ms,), np.float32)
+            tks = np.zeros((ms,), np.int32)
+            seeds = np.zeros((ms,), np.int64)
+            for s, st in self.slots.items():
+                sp = st.req.sampling
+                if sp is not None and not sp.greedy:
+                    temps[s] = sp.temperature
+                    tks[s] = sp.top_k
+                    seeds[s] = _step_seed(sp.seed, len(st.tokens))
+            extra.update(temps=to_device(temps, dev),
+                         top_ks=to_device(tks, dev),
+                         seeds=to_device(seeds, dev))
         nxt = M.decode_step_paged(
             self.params, self.cfg, to_device(toks, dev),
             to_device(pos, dev), to_device(pages, dev),
             to_device(offs, dev), to_device(bt, dev), to_device(lens, dev),
-            self.pool.k, self.pool.v, **cross_args)
+            self.pool.k, self.pool.v, **extra)
         return nxt.cpu().numpy()
 
     # ------------------------------------------------------------------

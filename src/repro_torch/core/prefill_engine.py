@@ -9,7 +9,9 @@ through ``PrefilledKV`` and free their pages.  Cross-attention archs
 (VLM / enc-dec) also hold READ-ONLY cross pages per request: the encoder
 K/V is scattered once, by the chunk holding the request's first
 segment; every chunk attends it through a second block table, and the
-finished request ships the cross pages beside the self KV.
+finished request ships the cross pages beside the self KV.  With a
+sliding window, the pages the processed prefix slid past are freed
+after every chunk, so a finished request ships only its in-window pages.
 
 Host-side bookkeeping is the reference's: pad to powers of two, tables
 built with numpy, first tokens copied to the host.  The model runs on
@@ -129,6 +131,7 @@ class PrefillEngine:
         self.encoder_calls = 0       # chunks that ran encoder + scatter
         self.enc_ctx = self.spec.cross_ctx
         self.alloc = PagedAllocator(n_pages=n_pages, page_size=page_size,
+                                    window=cfg.sliding_window,
                                     cross_tokens=self.enc_ctx)
         self.pool, self._trash = make_page_pool(cfg, n_pages, page_size,
                                                 self.device)
@@ -300,6 +303,9 @@ class PrefillEngine:
         for i, seg in enumerate(segs):
             req = self._reqs[seg.rid]
             req.prefilled = seg.req_start + seg.length
+            # windowed: pages the processed prefix slid past go back to
+            # the free list (no-op for unwindowed configs)
+            self.alloc.trim(seg.rid, req.prefilled)
             if req.prefilled >= req.prompt_len:
                 finished.append(
                     self._finish_paged(req, int(next_tok[i]), now))

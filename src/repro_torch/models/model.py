@@ -11,7 +11,9 @@ page pools are updated in place):
                             the batch dim with per-segment q_offset/kv_len
   * ``decode_logits_paged`` / ``decode_step_paged`` — full-slot-batch
                             decode against the pool via block tables;
-                            greedy argmax stays on the device
+                            token selection stays on the device
+  * ``sample_tokens``     — greedy argmax or a temperature / top-k draw
+                            per slot, stateless and graph-ready
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 optional ``lm_head``/``pos_embed``, and ``layers``, one dict per layer
@@ -29,9 +31,10 @@ list of GQA + dense-MLP layer dicts, norm}.  The reference's scanned
 The page pools are (L, n_pages, page, kvh, hd) K/V for GQA and (L,
 n_pages, page, lora) / (L, n_pages, page, rope) latent / RoPE-key pages
 for MLA.  CROSS_ATTN layers read their encoder K/V from read-only
-cross pages of the same GQA pool, through a second block table.  The
-dense cache path, training, sliding-window paging and on-device
-sampling come with their slices.
+cross pages of the same GQA pool, through a second block table.  A
+sliding window (``cfg.sliding_window``) reaches every self-attention
+kernel; the engines' allocators free the pages that slid out of it.
+The dense cache path and training come with their slices.
 """
 from __future__ import annotations
 
@@ -207,14 +210,13 @@ def encoder_forward(params, cfg: ModelConfig, enc_embeds):
 # paged execution backend (serving hot path)
 # ---------------------------------------------------------------------------
 def paged_supported(cfg: ModelConfig) -> bool:
-    """True if the port's paged path serves this config: every layer a
-    full-attention ATTN or CROSS_ATTN block, GQA or MLA, with a dense
-    MLP or a routed MoE; a CROSS_ATTN layer's encoder K/V lives in
+    """True if the port's paged path serves this config: every layer an
+    ATTN or CROSS_ATTN block, full or sliding-window, GQA or MLA, with a
+    dense MLP or a routed MoE; a CROSS_ATTN layer's encoder K/V lives in
     read-only cross pages of the same pool.  MLA with cross-attention
-    has no arch and is refused, as in the reference.  The reference also
-    pages sliding-window archs; they come with their slice."""
+    has no arch and is refused, as in the reference."""
     kinds = set(cfg.layer_kinds)
-    return (kinds <= {ATTN, CROSS_ATTN} and not cfg.sliding_window
+    return (kinds <= {ATTN, CROSS_ATTN}
             and not (cfg.mla is not None and CROSS_ATTN in kinds))
 
 
@@ -358,19 +360,89 @@ def decode_logits_paged(params, cfg: ModelConfig, tokens, pos, pages, offs,
     return _head(params, cfg, h)[:, -1]
 
 
+# ---------------------------------------------------------------------------
+# on-device token selection
+# ---------------------------------------------------------------------------
+_MASK32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9       # keeps seed 0 off the hash's fixed point 0
+
+
+def _mul32(x, c: int):
+    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32) and a 32-bit
+    constant ``c``, split in 16-bit halves so that no product passes
+    2**48: exact in int64 on every device."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def hash32(x):
+    """A 32-bit integer hash (the ``lowbias32`` finalizer) of int64
+    values in [0, 2**32), computed with int64 tensor ops."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def draw_bits(seeds, vocab: int):
+    """(slots, vocab) int64 hashes in [0, 2**32) of (seed, vocabulary
+    index): a counter-based draw that keeps no generator state."""
+    key = hash32((seeds.long() + _GOLDEN) & _MASK32)[:, None]
+    idx = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
+    return hash32((hash32(idx[None, :] ^ key) + key) & _MASK32)
+
+
+def sample_tokens(logits, temps, top_ks, seeds):
+    """Batched on-device token selection, with the reference's semantics
+    (``repro/models/model.py:sample_tokens``): greedy argmax where
+    ``temps == 0``, else a temperature / top-k categorical draw.
+
+    logits: (slots, V); temps: (slots,) float; top_ks: (slots,) int (0 =
+    no top-k restriction; top-k keeps every logit >= the k-th largest,
+    ties included); seeds: (slots,) int in [0, 2**32), derived by the
+    caller from (request seed, step), so a request's stream does not
+    depend on its slot or its batch.
+
+    The draw is Gumbel-max over ``draw_bits``: each hash becomes a
+    uniform (h + 0.5) / 2**32 and a Gumbel -log(-log(u)) in float64,
+    added to the masked logits over the temperature; the argmax is the
+    sample.  Integer hashing gives the same draw on the CPU and on the
+    card, keeps no generator state and never syncs with the host.  It
+    cannot match JAX's PRNG bit for bit.  The greedy lanes take plain
+    ``argmax``, so temperature-0 slots stay exact in a sampled batch.
+    """
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    v = logits.shape[-1]
+    top_ks = top_ks.long()
+    # the k-th largest in the logits' own type: float64 holds f32 and
+    # bf16 exactly, so the mask is the one float64 would give
+    kth = torch.sort(logits, dim=-1, descending=True).values.gather(
+        -1, (top_ks.clamp(1, v) - 1)[:, None])
+    lg = logits.double()
+    masked = lg.masked_fill((top_ks[:, None] > 0) & (logits < kth),
+                            float("-inf"))
+    temps = temps.double()
+    safe_t = torch.where(temps > 0, temps, torch.ones_like(temps))
+    u = (draw_bits(seeds, v).double() + 0.5) * 2.0 ** -32
+    gumbel = -torch.log(-torch.log(u))
+    sampled = torch.argmax(masked / safe_t[:, None] + gumbel,
+                           dim=-1).to(torch.int32)
+    return torch.where(temps > 0, sampled, greedy)
+
+
 def decode_step_paged(params, cfg: ModelConfig, tokens, pos, pages, offs,
                       block_tables, lens, k_pool, v_pool,
                       cross_bt=None, cross_len=None,
                       temps=None, top_ks=None, seeds=None):
-    """``decode_logits_paged`` with greedy token selection on the device:
-    returns next_tokens (slots,) int32; k_pool/v_pool are updated in
-    place.  Sampling (``temps``/``top_ks``/``seeds``) comes with the
-    on-device sampling slice."""
-    if any(a is not None for a in (temps, top_ks, seeds)):
-        raise NotImplementedError(
-            "decode_step_paged sampling: comes with the on-device "
-            "sampling slice; the port decodes greedily")
+    """``decode_logits_paged`` with the token selection on the device:
+    argmax when ``temps`` is None, else per-slot temperature / top-k
+    sampling through ``sample_tokens`` (greedy slots keep the argmax
+    exactly).  Returns next_tokens (slots,) int32; k_pool/v_pool are
+    updated in place."""
     logits = decode_logits_paged(params, cfg, tokens, pos, pages, offs,
                                  block_tables, lens, k_pool, v_pool,
                                  cross_bt, cross_len)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    if temps is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return sample_tokens(logits, temps, top_ks, seeds)

@@ -639,3 +639,30 @@ def test_cuda_prefill_refuses_bf16_widths_without_a_body():
     exp = ref.paged_prefill_attention(q, kp, vp, bt, kv_len, q_off)
     torch.cuda.synchronize()
     assert float((got - exp).abs().max()) < F32_TOL
+
+
+@pytest.mark.gpu
+def test_cuda_sample_tokens_matches_cpu():
+    """On the card: ``model.sample_tokens`` gives the CPU's tokens for the
+    same logits, temperatures, top-k and seeds (the integer hash and the
+    float64 Gumbel draw are the same on both devices), at qwen2-0.5b's
+    vocabulary, greedy and sampled lanes mixed, f32 and bf16 logits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.models.model import sample_tokens
+    rng = np.random.default_rng(9)
+    n, vocab = 64, 151936
+    temps = torch.from_numpy(np.where(np.arange(n) % 4 == 0, 0.0,
+                                      rng.uniform(0.3, 1.5, n))
+                             .astype(np.float32))
+    tks = torch.from_numpy(rng.choice([0, 1, 20, 50], n).astype(np.int32))
+    seeds = torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.int64))
+    for dtype in (torch.float32, torch.bfloat16):
+        logits = torch.from_numpy(_rand(rng, (n, vocab)) * 3).to(dtype)
+        cpu = sample_tokens(logits, temps, tks, seeds)
+        dev = torch.device("cuda")
+        got = sample_tokens(logits.to(dev), temps.to(dev), tks.to(dev),
+                            seeds.to(dev))
+        assert torch.equal(got.cpu(), cpu)
+        assert torch.equal(cpu[::4], torch.argmax(logits[::4], dim=-1)
+                           .to(torch.int32))

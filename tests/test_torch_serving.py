@@ -158,15 +158,8 @@ def test_prefill_page_backpressure(setup):
     assert pe.alloc.used_pages == 0
 
 
-def test_sampled_requests_and_unported_paths_raise(setup):
+def test_dense_backend_and_prefix_cache_raise(setup):
     cfg, _, params = setup
-    pe, de = _engines(cfg, params, port=True)
-    r = Request("s", 5, 3, prompt_tokens=np.arange(5, dtype=np.int32),
-                sampling=SamplingParams(temperature=0.7))
-    pe.submit(r)
-    (pk,) = pe.step(0.0)
-    with pytest.raises(NotImplementedError):
-        de.receive(pk)
     with pytest.raises(NotImplementedError):
         PrefillEngine("p", cfg, params, device="cpu", backend="dense")
     with pytest.raises(NotImplementedError):

@@ -15,8 +15,10 @@ heads, bf16 latent pools, f32 queries).  For each row it prints one
 JSON line: ms a
 launch by CUDA events over back-to-back calls, the wrapper's host µs a
 call (``chip_smoke.host_us``), both before any profiler session, the
-card's device µs a call by the profiler (``chip_smoke.device_us``), the
-ms again after it, the bound, and the card's name and power limit.
+card's device µs a call by the profiler (``chip_smoke.profiler_us``, 0
+when its session recorded no kernel) and by CUDA events behind a spin
+kernel (``chip_smoke.queued_us``, the smoke run's fallback), the ms again
+after them, the bound, and the card's name and power limit.
 Exits non-zero without a card.
 """
 from __future__ import annotations
@@ -96,10 +98,12 @@ def main() -> int:
               cs.host_us(lambda: kern(*args), reps=50))
              for _, kern, args, _ in rows]
     for (name, kern, args, work), (ms, host) in zip(rows, first):
-        device = cs.device_us(lambda: kern(*args), reps=50)
+        device = cs.profiler_us(lambda: kern(*args), reps=50)
+        queued = cs.queued_us(lambda: kern(*args), reps=50)
         bound, _ = cs.bound(*work(args), dtype)
         print(json.dumps({"tag": a.tag, "row": name, "ms": ms,
                           "host_us": host, "device_us": device,
+                          "queued_us": queued,
                           "ms_after_profiler": cs.cuda_ms(
                               lambda: kern(*args), reps=50),
                           "bound_ms": bound, "card": card}))
