@@ -54,9 +54,20 @@ Phases, in order (any failure exits non-zero):
    and DeepSeek-67B at ``served()``'s depth, 4 requests of 16 tokens;
    3f-3h check launches and wire bytes.  3i: qwen2-0.5b with every
    second request sampled (temperature 0.8, top-k 20): two runs
-   identical, greedy streams those of an all-greedy run.  Every kernel's
-   launch counter is set to 0 just before each run and read just after
-   it.
+   identical, greedy streams those of an all-greedy run.  3j: phase 3e's
+   traffic through the wall-clock ``AsyncCluster`` (2 prefill + 2 decode
+   instances, each worker on a CUDA stream of its own), submitted by
+   ``OpenLoopClient`` at Poisson arrivals of 20 req/s, a ninth request
+   cancelled after 3 tokens: all terminal, no page held, no worker
+   error; wall TTFT / JCT p50 and p99, and the overlap share (summed
+   ``busy`` over wall seconds).  3k: 16 shared-prefix requests (2
+   prefixes of 1,024 tokens) through ``Cluster`` and ``AsyncCluster``
+   with ``prefix_cache=True`` and without: hits, fewer fused calls and
+   kernel-1 launches, fewer wire bytes, no leak.  3l: Whisper-tiny whole
+   with the cache on, 8 requests of 2 encoder inputs: the encoder once
+   per input, decode slots sharing cross pages under kernel 4.  Every
+   kernel's launch counter is set to 0 just before each run and read
+   just after it.
 4. Device vs CPU in f32, once on the card (kernels) and once on the CPU
    (plain versions): qwen2-0.5b at 2 layers on the served requests (4),
    DeepSeek-V2 at 2 layers (dense prefix + 1 routed) on 2 short requests
@@ -67,6 +78,11 @@ Phases, in order (any failure exits non-zero):
    timestamps and instance assignment.  4e: phase 3i's mixed greedy /
    sampled batch (sampled lanes included), OPT-13B and Mistral-Nemo at a
    64-token window in 64-token chunks, at 2 layers: the same tokens.
+   4f: phase 3j's traffic through ``AsyncCluster`` on the card against
+   the sync ``Cluster`` on the CPU, phase 3k's with the cache on the
+   card against cache-off on the CPU (and the cache-on payloads within
+   f32 tolerance of cache-off's), and phase 3l's on Whisper whole with
+   the cache on against off: the same tokens.
 5. Numbers: prefill and decode tokens/s of the served runs, and each
    kernel's time at the served shapes beside its bound, its plain
    version and one PyTorch library call, measured with CUDA events
@@ -74,7 +90,9 @@ Phases, in order (any failure exits non-zero):
    shapes, the library call then on the in-window K/V),
    with its achieved TFLOP/s, the body it ran and the wrapper's host µs
    a call; then, every row timed, the card's device µs a call by the
-   profiler, with the device TB/s and share of the bound.
+   profiler, with the device TB/s and share of the bound.  Last, phase
+   3j again under the profiler: the card's idle share over the run and
+   the share of its busy time in which two or more streams ran at once.
 
 The line before the last is the JSON kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -168,6 +186,21 @@ SAMPLED = dict(temperature=0.8, top_k=20)
 # window in 64-token chunks, so tables are trimmed between chunks
 SLICE8_CHECK = dict(n=2, lo=16, hi=64, new=4)
 NEMO_CHECK = dict(window=64, n=2, lo=100, hi=300, new=8, chunk_size=64)
+# phases 3j / 4f: the wall-clock AsyncCluster's instances (each worker on
+# a stream of its own) and the open-loop arrivals of phase 3e's traffic
+# (the reference serve's default rate); every wait gives up after DRAIN_S
+ASYNC = dict(n_prefill=2, n_decode=2, rate=20.0, process="poisson")
+DRAIN_S = 300.0
+# phases 3k / 4f: shared-prefix traffic for the prefix cache, in waves of
+# SCHED_BATCH (the cache serves committed entries only, so the sharing
+# shows across waves), one prefill and one decode instance
+PREFIX = dict(n=16, max_prompt=1536, max_decode=32, prefix_pool=2,
+              prefix_len=1024, prefix_zipf=1.2)
+PREFIX_CLUSTER = dict(n_prefill=1, n_decode=1, sched_batch=2)
+# phases 3l / 4f: Whisper requests whose encoder inputs are byte-equal
+# in GROUPS groups (several users sending one clip), prefilled one at a
+# time, so each request not deduped runs the encoder once
+DEDUPE = dict(n=8, groups=2)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1034,14 +1067,21 @@ def serve(cfg, params, reqs, device, time_it=False, watch=None, **over):
     import torch
     from repro_torch.core.decode_engine import DecodeEngine
     from repro_torch.core.prefill_engine import PrefillEngine
-    opts = dict(SERVE, **{k: v for k, v in over.items() if v is not None})
+    from repro_torch.core.sched.prefill_scheduler import PrefillScheduler
+    opts = dict(SERVE, prefix_cache=False, sched_batch=None)
+    opts.update({k: v for k, v in over.items() if v is not None})
+    # the default scheduler unless the caller sets its batch (sjf)
     pe = PrefillEngine("p0", cfg, params, device=device,
+                       scheduler=None if opts["sched_batch"] is None
+                       else PrefillScheduler("sjf", opts["sched_batch"]),
                        chunk_size=opts["chunk_size"],
                        max_seq=opts["max_seq"], n_pages=opts["n_pages"],
-                       page_size=opts["page_size"])
+                       page_size=opts["page_size"],
+                       prefix_cache=opts["prefix_cache"])
     de = DecodeEngine("d0", cfg, params, device=device,
                       max_slots=opts["max_slots"], max_seq=opts["max_seq"],
-                      n_pages=opts["n_pages"], page_size=opts["page_size"])
+                      n_pages=opts["n_pages"], page_size=opts["page_size"],
+                      prefix_cache=opts["prefix_cache"])
     for r in reqs:
         pe.submit(r)
     out, t, t_pre, t_dec = {}, 0.0, 0.0, 0.0
@@ -1446,7 +1486,467 @@ def cluster_phase(cfg, params, device, kernels, card):
           f"busy = {decoded / res.decode_busy:.1f} tokens/s ({card})")
     del cl
     torch.cuda.empty_cache()
+    return launches, record
+
+
+def percentile(xs, q):
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
+
+
+def async_run(cfg, params, device, kernels=None):
+    """Phases 3j / 4f: phase 3e's N_REQUESTS requests through the
+    wall-clock ``AsyncCluster`` with ASYNC's instances (SERVE settings),
+    submitted by ``OpenLoopClient`` at ASYNC's Poisson arrivals from
+    SEED, plus CANCEL's request, submitted first and cancelled after its
+    CANCEL["after"]th streamed token.  Checks the run: every request
+    terminal, the others' tokens, no page held, ``worker_errors`` empty,
+    on the card four distinct non-default streams.  Returns (cluster,
+    handles of the N_REQUESTS requests in order, wall seconds, and with
+    ``kernels`` the launches by kernel, counters set to 0 just before)."""
+    from repro_torch.runtime.request import Phase
+    from repro_torch.serving import (ArrivalSchedule, AsyncCluster,
+                                     OpenLoopClient, SamplingParams)
+    reqs = make_requests(cfg.vocab_size)
+    rng = np.random.default_rng(SEED + 9)
+    long_prompt = rng.integers(0, cfg.vocab_size,
+                               CANCEL["prompt"]).astype(np.int32)
+    sched = ArrivalSchedule(process=ASYNC["process"], rate=ASYNC["rate"],
+                            seed=SEED)
+    ac = AsyncCluster(cfg, params=params, device=device,
+                      n_prefill=ASYNC["n_prefill"],
+                      n_decode=ASYNC["n_decode"],
+                      chunk_size=SERVE["chunk_size"],
+                      page_size=SERVE["page_size"],
+                      max_seq=SERVE["max_seq"], n_pages=SERVE["n_pages"],
+                      max_batch=SERVE["max_slots"])
+    try:
+        if ac.device.type == "cuda":
+            raw = {i.stream.cuda_stream for i in ac.instances}
+            check(len(raw) == len(ac.instances) and 0 not in raw,
+                  f"async run: instance streams {raw} not distinct and "
+                  "off the default stream")
+        if kernels is not None:
+            zero_launches(kernels)
+        t0 = time.perf_counter()
+        long_h = ac.submit(long_prompt, sampling=SamplingParams(
+            max_new_tokens=CANCEL["new"]))
+        client = OpenLoopClient(ac, reqs, sched).start()
+        deadline = time.monotonic() + DRAIN_S
+        while (len(long_h.tokens_so_far()) < CANCEL["after"]
+               and not long_h.done() and time.monotonic() < deadline):
+            time.sleep(0.0005)
+        check(long_h.cancel(), "async run: the long request ended before "
+              f"its cancel ({long_h.request.phase})")
+        client.join(timeout=DRAIN_S)
+        check(client.submitted == len(reqs), f"async run: the client "
+              f"submitted {client.submitted} of {len(reqs)}")
+        check(ac.drain(timeout=DRAIN_S), "async run: drain timed out")
+        wall = time.perf_counter() - t0
+        launches = read_launches(kernels) if kernels is not None else None
+        check(ac.worker_errors == [], "async run: worker errors:\n"
+              + "\n".join(ac.worker_errors))
+        res = long_h.result(wait=False)
+        n_cancel = len(res.tokens)
+        check(res.phase == Phase.CANCELLED and n_cancel >= CANCEL["after"]
+              and ac.drain(timeout=5)
+              and len(long_h.tokens_so_far()) == n_cancel,
+              f"async run: the cancelled request is {res.phase} with "
+              f"{n_cancel} tokens")
+        handles = client.handles
+        for h in handles:
+            r = h.result(wait=False)
+            check(r.phase == Phase.FINISHED and len(r.tokens) == NEW_TOKENS,
+                  f"async run: {h.rid}: {r.phase}, {len(r.tokens)} tokens")
+        for i in ac.instances:
+            for a in (i.pe.alloc, i.de.alloc):
+                check(a.free_pages == a.n_pages, f"async run: {i.iid} "
+                      f"holds {a.n_pages - a.free_pages} pages")
+    finally:
+        ac.close()
+    return ac, handles, wall, launches
+
+
+def async_phase(cfg, params, device, kernels, card, record):
+    """Phase 3j: async_run on the card with full-width ``cfg`` (after a
+    short warm-up run that readies each stream); kernels 1 and 2
+    launched, 3, 4 and 5 not, every bf16 launch of kernel 1 on the
+    tensor-core body.  Prints wall TTFT and JCT (p50, p99), the wall
+    seconds, the overlap share (the instances' summed ``busy`` seconds
+    over the wall seconds: above 1 where steps overlapped) and how many
+    streams equal phase 3e's (``record``; printed, not checked: bf16
+    chunk compositions differ)."""
+    import torch
+    from repro_torch.serving import AsyncCluster
+    warm = make_requests(cfg.vocab_size, n=4, lo=64, hi=64, new=2)
+    with AsyncCluster(cfg, params=params, device=device,
+                      n_prefill=ASYNC["n_prefill"],
+                      n_decode=ASYNC["n_decode"],
+                      chunk_size=SERVE["chunk_size"],
+                      page_size=SERVE["page_size"],
+                      max_seq=SERVE["max_seq"], n_pages=SERVE["n_pages"],
+                      max_batch=SERVE["max_slots"]) as ac:
+        for r in warm:
+            ac.submit(request=r)
+        check(ac.drain(timeout=DRAIN_S) and ac.worker_errors == [],
+              "phase 3j: the warm-up run failed")
+    ac, handles, wall, launches = async_run(cfg, params, device, kernels)
+    check_bodies("3j", launches, cfg.dtype)
+    check(launches["paged_prefill_attention"] > 0
+          and launches["paged_decode_attention"] > 0
+          and launches["paged_mla_decode_attention"] == 0
+          and launches["paged_cross_decode_attention"] == 0
+          and launches["chunked_prefill_attention"] == 0,
+          f"phase 3j: launches {launches}")
+    rs = [h.result(wait=False) for h in handles]
+    ttft = [r.t_first_token - r.arrival for r in rs]
+    jct = [r.t_finish - r.arrival for r in rs]
+    busy = {i.iid: i.busy for i in ac.instances}
+    overlap = sum(busy.values()) / wall
+    same = sum(r.tokens == record[f"req{i:05d}"][2]
+               for i, r in enumerate(rs))
+    print(f"phase 3j: AsyncCluster, {cfg.name} {cfg.dtype}, "
+          f"{ASYNC['n_prefill']} prefill + {ASYNC['n_decode']} decode "
+          f"instances on 4 streams, open-loop {ASYNC['process']} at "
+          f"{ASYNC['rate']} req/s: {len(rs)} finished with {NEW_TOKENS} "
+          f"tokens, 1 cancelled after {CANCEL['after']}; launches "
+          f"{launches}; pages all freed; no worker error")
+    print(f"phase 3j: wall TTFT p50 {percentile(ttft, 50):.4f} s p99 "
+          f"{percentile(ttft, 99):.4f} s, JCT p50 {percentile(jct, 50):.4f}"
+          f" s p99 {percentile(jct, 99):.4f} s; wall {wall:.3f} s; busy "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in busy.items())} s; "
+          f"overlap share {overlap:.3f}; {same} of {len(rs)} streams equal "
+          f"phase 3e's ({card})")
+    del ac
+    torch.cuda.empty_cache()
     return launches
+
+
+def device_activity(prof):
+    """The card's activity a profiler session recorded (kernels, copies,
+    sets): {stream: [(start ns, end ns), ...]}."""
+    from torch.autograd import DeviceType
+    by = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            by.setdefault(e.device_resource_id(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns()))
+    return by
+
+
+def overlap_stats(by):
+    """From device_activity: the span from the first start to the last
+    end, the busy time (the union of the intervals), the time two or more
+    intervals ran at once, and the summed interval time, in seconds."""
+    evs = [iv for ivs in by.values() for iv in ivs]
+    points = sorted([(a, 1) for a, _ in evs] + [(b, -1) for _, b in evs])
+    active, last, busy, multi = 0, points[0][0], 0, 0
+    for t, d in points:
+        busy += (t - last) * (active > 0)
+        multi += (t - last) * (active > 1)
+        active, last = active + d, t
+    span = max(b for _, b in evs) - min(a for a, _ in evs)
+    return (span * 1e-9, busy * 1e-9, multi * 1e-9,
+            sum(b - a for a, b in evs) * 1e-9)
+
+
+def async_trace_phase(cfg, device, card):
+    """Phase 3j's traced run, after phase 5's timings (a profiler session
+    can slow later host launches): async_run again on fresh full-width
+    weights under ``torch.profiler`` (CUDA activity only).  Prints the
+    card's busy share of the traced span (its idle share is the rest),
+    the share of the busy time in which two or more streams ran at once,
+    and the busy time of each stream.  Not a check: a session may record
+    nothing, and then says so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(SEED), device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, wall, _ = async_run(cfg, params, device)
+        torch.cuda.synchronize()
+    by = device_activity(prof)
+    if not by:
+        print(f"phase 3j (traced): the profiler recorded no device "
+              f"activity: device idle share not measured ({card})")
+        return
+    span, busy, multi, total = overlap_stats(by)
+    streams = sorted(((sum(b - a for a, b in ivs) * 1e-9, sid)
+                      for sid, ivs in by.items()), reverse=True)
+    print(f"phase 3j (traced): wall {wall:.3f} s under the profiler; "
+          f"device activity on {len(by)} streams over a span of "
+          f"{span:.3f} s: busy {busy:.3f} s = {busy / span:.3f} of the "
+          f"span (idle share {1 - busy / span:.3f}), two or more streams "
+          f"at once {multi:.3f} s = {multi / busy:.3f} of the busy time, "
+          f"summed activity {total:.3f} s; by stream "
+          f"{', '.join(f'{sid}: {t:.3f}' for t, sid in streams)} s "
+          f"({card})")
+    del params
+    torch.cuda.empty_cache()
+
+
+def prefix_requests(vocab):
+    from repro_torch.runtime.workload import generate
+    return generate("Mixed", PREFIX["n"], seed=SEED,
+                    max_prompt=PREFIX["max_prompt"],
+                    max_decode=PREFIX["max_decode"], vocab_size=vocab,
+                    prefix_pool=PREFIX["prefix_pool"],
+                    prefix_len=PREFIX["prefix_len"],
+                    prefix_zipf=PREFIX["prefix_zipf"])
+
+
+def prefix_run(cfg, params, device, flag, wall_clock, kernels=None):
+    """Phases 3k / 4f: PREFIX's traffic through ``Cluster`` (or, with
+    ``wall_clock``, ``AsyncCluster``) with PREFIX_CLUSTER's instances,
+    the SERVE settings and ``prefix_cache=flag``.  Checks that every
+    request finished and that every page is free or held by a cache
+    entry.  Returns (tokens by rid, stats, launches by kernel when
+    ``kernels``)."""
+    from repro_torch.runtime.request import Phase
+    from repro_torch.serving import AsyncCluster, Cluster
+    kw = dict(params=params, device=device, chunk_size=SERVE["chunk_size"],
+              page_size=SERVE["page_size"], max_seq=SERVE["max_seq"],
+              n_pages=SERVE["n_pages"], max_batch=SERVE["max_slots"],
+              prefix_cache=flag, **PREFIX_CLUSTER)
+    reqs = prefix_requests(cfg.vocab_size)
+    tag = f"{'AsyncCluster' if wall_clock else 'Cluster'}, cache " \
+          f"{'on' if flag else 'off'}"
+    if kernels is not None:
+        zero_launches(kernels)
+    if wall_clock:
+        c = AsyncCluster(cfg, **kw)
+        try:
+            hs = [c.submit(request=r) for r in reqs]
+            check(c.drain(timeout=DRAIN_S), f"{tag}: drain timed out")
+            check(c.worker_errors == [], f"{tag}: worker errors:\n"
+                  + "\n".join(c.worker_errors))
+        finally:
+            c.close()
+        results = [h.result(wait=False) for h in hs]
+    else:
+        c = Cluster(cfg, runtime="engine", **kw)
+        hs = [c.submit(request=r) for r in reqs]
+        c.run()
+        results = [h.result() for h in hs]
+    launches = read_launches(kernels) if kernels is not None else None
+    check(all(r.phase == Phase.FINISHED for r in results),
+          f"{tag}: not every request finished")
+    for i in c.instances:
+        for a in (i.pe.alloc, i.de.alloc):
+            check(a.free_pages + len(a.cache_pages()) == a.n_pages
+                  and not a._tables, f"{tag}: {i.iid} leaks pages")
+    pes = [i.pe for i in c.instances]
+    res = c.result()
+    stats = dict(
+        hits=sum(p.alloc.cache_hits for p in pes),
+        lookups=sum(p.alloc.cache_lookups for p in pes),
+        decode_hits=sum(i.de.alloc.cache_hits for i in c.instances),
+        fused=sum(p.fused_calls for p in pes),
+        sent=c.network.bytes_sent, saved=c.network.bytes_saved,
+        prefill_s=res.prefill_busy, prompt=sum(r.prompt_len for r in reqs))
+    return {r.rid: r.tokens for r in results}, stats, launches
+
+
+def prefix_phase(cfg, params, device, kernels, card):
+    """Phase 3k: prefix_run on the card with full-width ``cfg`` through
+    both runtimes, the cache on and off: with it, cache hits, fewer fused
+    calls and kernel-1 launches, bytes saved and fewer bytes sent.
+    Prints the prefill wall seconds (the prefill instances' ``busy``)
+    with and without the cache, the hit rate, and how many streams agree
+    between cache on and off (printed, not checked: bf16)."""
+    for wall_clock in (False, True):
+        runs = {}
+        for flag in (True, False):
+            runs[flag] = prefix_run(cfg, params, device, flag, wall_clock,
+                                    kernels)
+        (t_on, on, l_on), (t_off, off, l_off) = runs[True], runs[False]
+        name = "AsyncCluster" if wall_clock else "Cluster"
+        check_bodies("3k", l_on, cfg.dtype)
+        k1 = "paged_prefill_attention"
+        check(on["hits"] > 0
+              and on["fused"] < off["fused"] and l_on[k1] < l_off[k1]
+              and on["saved"] > 0 and on["sent"] < off["sent"],
+              f"phase 3k: {name}: cache on {on}, launches {l_on}; off "
+              f"{off}, launches {l_off}")
+        same = sum(t_on[r] == t_off[r] for r in t_on)
+        print(f"phase 3k: {name}(prefix_cache=True), {cfg.name} "
+              f"{cfg.dtype}, {PREFIX['n']} requests ({PREFIX['prefix_pool']}"
+              f" shared prefixes of {PREFIX['prefix_len']}, waves of "
+              f"{PREFIX_CLUSTER['sched_batch']}): hit rate {on['hits']}/"
+              f"{on['lookups']} = {on['hits'] / on['lookups']:.3f} prefix "
+              f"pages, {on['decode_hits']} decode-side hits; fused calls "
+              f"{on['fused']} vs {off['fused']} off, kernel-1 launches "
+              f"{l_on[k1]} vs {l_off[k1]}; wire {on['sent']} bytes vs "
+              f"{off['sent']} ({on['saved']} saved); prefill busy "
+              f"{on['prefill_s']:.3f} s vs {off['prefill_s']:.3f} s for "
+              f"{on['prompt']} prompt tokens; {same} of {len(t_on)} "
+              f"streams equal cache-off's ({card})")
+
+
+def dedupe_requests(cfg, device):
+    """DEDUPE's Whisper requests: stub frontend embeddings from SEED + 13,
+    byte-equal within each of DEDUPE["groups"] groups, kept on the host
+    (the cache hashes them)."""
+    import torch
+    from repro_torch.models.frontends import fake_frontend
+    clips = fake_frontend(cfg, DEDUPE["groups"], torch.Generator(
+        device=device).manual_seed(SEED + 13), device).float().cpu().numpy()
+    enc = np.stack([clips[i % DEDUPE["groups"]]
+                    for i in range(DEDUPE["n"])])
+    return make_requests(cfg.vocab_size, n=DEDUPE["n"],
+                         lo=WHISPER_PROMPTS[0], hi=WHISPER_PROMPTS[1],
+                         enc=enc)
+
+
+def dedupe_run(cfg, params, device, flag):
+    """Phases 3l / 4f: DEDUPE's requests through the engines (prefilled
+    one at a time, the cache ``flag``): checks every request finished and
+    no page leaked; returns (tokens by rid, prefill engine, decode
+    engine, the most decode slots that read one set of cross pages at
+    once)."""
+    shared = [0]
+
+    def watch(x):
+        if hasattr(x, "slots"):
+            groups = {}
+            for st in x.slots.values():
+                key = tuple(x.alloc.cross_table(st.req.rid))
+                groups[key] = groups.get(key, 0) + 1
+            shared[0] = max([shared[0], *groups.values()])
+    out, pe, de, _, _ = serve(cfg, params, dedupe_requests(cfg, device),
+                              device, watch=watch, prefix_cache=flag,
+                              sched_batch=1, n_pages=CROSS_PAGES)
+    check(len(out) == DEDUPE["n"] and all(
+        len(t) == NEW_TOKENS for t in out.values()),
+        "dedupe run: not every request finished with its tokens")
+    for a in (pe.alloc, de.alloc):
+        check(a.free_pages + len(a.cache_pages()) == a.n_pages
+              and not a._tables, "dedupe run: pages leaked")
+    return out, pe, de, shared[0]
+
+
+def dedupe_phase(cfg, device, kernels, card):
+    """Phase 3l: Whisper-tiny whole in bf16, the prefix cache on:
+    DEDUPE's requests run the encoder once per group, every other
+    request aliases its group's cross pages, and at least two decode
+    slots read the same cross pages through kernel 4."""
+    import torch
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(SEED), device)
+    zero_launches(kernels)
+    out, pe, de, shared = dedupe_run(cfg, params, device, True)
+    launches = read_launches(kernels)
+    aliased = pe.alloc.cross_hits
+    check(pe.encoder_calls < DEDUPE["n"]
+          and pe.encoder_calls == DEDUPE["n"] - aliased,
+          f"phase 3l: {pe.encoder_calls} encoder calls, {aliased} requests "
+          "aliased their cross pages")
+    check(shared >= 2 and launches["paged_cross_decode_attention"] > 0,
+          f"phase 3l: at most {shared} decode slots shared cross pages; "
+          f"launches {launches}")
+    print(f"phase 3l: {cfg.name} bf16, prefix cache on, {DEDUPE['n']} "
+          f"requests in {DEDUPE['groups']} groups of one encoder input: "
+          f"{pe.encoder_calls} encoder calls, {aliased} requests aliased "
+          f"their cross pages at prefill, {de.alloc.cross_hits} at decode, "
+          f"up to {shared} decode slots on one set of cross pages; "
+          f"{pe.network.bytes_saved} wire bytes saved; launches "
+          f"{launches}; pages all back ({card})")
+    del params, pe, de
+    torch.cuda.empty_cache()
+
+
+def async_vs_cpu(cfg2, gpu_params, device, cpu_record):
+    """Phase 4f (i): async_run at 2 layers f32 on the card: every
+    uncancelled request's stream equals the port's sync Cluster on the
+    CPU (phase 4d's ``cpu_record``)."""
+    t0 = time.perf_counter()
+    _, handles, wall, _ = async_run(cfg2, gpu_params, device)
+    for i, h in enumerate(handles):
+        want = cpu_record[f"req{i:05d}"][2]
+        check(h.result(wait=False).tokens == want, f"phase 4f: {h.rid}: "
+              "the card's AsyncCluster and the CPU's Cluster differ")
+    print(f"phase 4f (i): AsyncCluster on the card (4 streams, open-loop "
+          f"arrivals) vs Cluster on the CPU, 2-layer f32: {len(handles)} "
+          f"token streams identical, {time.perf_counter() - t0:.1f} s")
+
+
+def prefix_vs_cpu(cfg2, gpu_params, cpu_params, device):
+    """Phase 4f (ii): PREFIX's traffic at 2 layers f32: the Cluster with
+    the cache on the card streams the tokens of the cache-off Cluster on
+    the CPU, and the cache-on prefill payloads on the card agree with the
+    cache-off ones within TOL on every prompt row."""
+    import torch
+    from repro_torch.core.prefill_engine import PrefillEngine
+    from repro_torch.core.sched.prefill_scheduler import PrefillScheduler
+    t0 = time.perf_counter()
+    on, stats, _ = prefix_run(cfg2, gpu_params, device, True, False)
+    off, _, _ = prefix_run(cfg2, cpu_params, "cpu", False, False)
+    check(stats["hits"] > 0 and on == off, "phase 4f: the cache-on "
+          "Cluster on the card and the cache-off one on the CPU differ")
+    payloads = []
+    for flag in (True, False):
+        pe = PrefillEngine("p0", cfg2, gpu_params, device=device,
+                           scheduler=PrefillScheduler(
+                               "sjf", PREFIX_CLUSTER["sched_batch"]),
+                           chunk_size=SERVE["chunk_size"],
+                           max_seq=SERVE["max_seq"],
+                           n_pages=SERVE["n_pages"],
+                           page_size=SERVE["page_size"], prefix_cache=flag)
+        for r in prefix_requests(cfg2.vocab_size):
+            pe.submit(r)
+        got = {}
+        for _ in range(10_000):
+            for pk in pe.step(0.0):
+                got[pk.req.rid] = pk
+            if pe.idle():
+                break
+        payloads.append(got)
+    torch.cuda.synchronize()
+    worst, cached = 0.0, 0
+    for rid, pk in payloads[0].items():
+        pk0 = payloads[1][rid]
+        check(pk.first_token == pk0.first_token, f"phase 4f: {rid}: first "
+              "token differs with the cache on")
+        cached += pk.cached_tokens
+        # the prompt's rows: a last page's rows past the prompt hold
+        # whatever the page held before, and the two runs reuse pages in
+        # different orders
+        n = pk.req.prompt_len
+        for a, b in ((pk.pages_k, pk0.pages_k), (pk.pages_v, pk0.pages_v)):
+            d = a.flatten(1, 2)[:, :n] - b.flatten(1, 2)[:, :n]
+            worst = max(worst, float(d.abs().max()))
+    tol = TOL["torch.float32"]
+    check(cached > 0 and worst <= tol, f"phase 4f: cache-on payloads "
+          f"differ from cache-off by {worst} ({cached} cached tokens)")
+    print(f"phase 4f (ii): {PREFIX['n']} shared-prefix requests, 2-layer "
+          f"f32: Cluster with the cache on the card ({stats['hits']} hits) "
+          f"and without it on the CPU: streams identical; cache-on "
+          f"payloads on the card ({cached} cached tokens) within "
+          f"{worst:.3e} of cache-off (tolerance {tol:g}), "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def dedupe_vs_off(cfg, device):
+    """Phase 4f (iii): DEDUPE's traffic on Whisper-tiny whole in f32 on
+    the card, the cache on against the cache off: identical streams."""
+    import torch
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(SEED + 14), device)
+    (on, pe, _, shared), (off, pe0, _, _) = (
+        dedupe_run(cfg, params, device, flag) for flag in (True, False))
+    check(on == off and pe.encoder_calls < pe0.encoder_calls,
+          "phase 4f: Whisper with the cache on and off differ")
+    print(f"phase 4f (iii): {cfg.name} whole, f32, cross pages deduped "
+          f"({pe.encoder_calls} vs {pe0.encoder_calls} encoder calls, up "
+          f"to {shared} slots on one set) vs not: {len(on)} streams "
+          f"identical, {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
 
 
 def slice8_configs():
@@ -1857,9 +2357,13 @@ def main() -> int:
           f"{launches} < {cfg.n_layers} x {de.iterations} iterations")
     del pe, de
     # -- phase 3e: the same weights through the serving API -------------
-    cluster_phase(cfg, params, device, kernels, card)
+    _, record3e = cluster_phase(cfg, params, device, kernels, card)
     # -- phase 3i: the same weights, every second request sampled --------
     sampling_phase(cfg, params, device, card)
+    # -- phase 3j: the wall-clock AsyncCluster, 4 instances on 4 streams --
+    async_phase(cfg, params, device, kernels, card, record3e)
+    # -- phase 3k: the prefix cache through both runtimes ----------------
+    prefix_phase(cfg, params, device, kernels, card)
     del params
     torch.cuda.empty_cache()
 
@@ -1895,6 +2399,8 @@ def main() -> int:
                                      PROMPT_RANGE)
     # -- phase 3d: serve Whisper-tiny whole, bf16 -------------------------
     cross_serve_phase("3d", wh_cfg, device, kernels, card, WHISPER_PROMPTS)
+    # -- phase 3l: Whisper's cross pages deduped by the prefix cache ------
+    dedupe_phase(wh_cfg, device, kernels, card)
 
     # -- phases 3f-3h: the full-attention configs, bf16 -------------------
     opt_run, nemo_run, *more_runs = slice8_configs()
@@ -1904,7 +2410,7 @@ def main() -> int:
         full_attention_phase("3h", run, device, kernels, card)
 
     # -- phase 4: device vs CPU, 2 layers, f32 ---------------------------
-    # (phases 4-4e run kernels 1, 5 and 3 in f32 only: their counters,
+    # (phases 4-4f run kernels 1, 5 and 3 in f32 only: their counters,
     # set to 0 here, must show no launch on the tensor-core body)
     zero_launches(kernels)
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
@@ -1936,6 +2442,9 @@ def main() -> int:
           f"{len(records[0])} requests with identical token streams, "
           f"virtual timestamps and instance assignment, "
           f"{time.perf_counter() - t0:.1f} s")
+    # -- phase 4f: the async runtime and the prefix cache, card vs CPU ----
+    async_vs_cpu(cfg2, gpu_params, device, records[1])
+    prefix_vs_cpu(cfg2, gpu_params, cpu_params, device)
     # -- phase 4e: phase 3i's mixed batch, 2 layers, f32, card vs CPU -----
     t0 = time.perf_counter()
     outs = [serve(cfg2, params, sampled_requests(cfg.vocab_size), dev)[0]
@@ -1957,6 +2466,8 @@ def main() -> int:
     cross_vs_cpu(dataclasses.replace(vlm_cfg, n_layers=VLM_CHECK_LAYERS),
                  device)
     torch.cuda.empty_cache()
+    # -- phase 4f (iii): Whisper's cross dedupe against none, f32 ---------
+    dedupe_vs_off(wh_cfg, device)
     # -- phase 4e: OPT-13B and windowed Mistral-Nemo, 2 layers, f32 -------
     opt2 = dataclasses.replace(opt_run["cfg"], n_layers=2, dtype="float32")
     vs_cpu("OPT-13B", opt2, device, lambda: make_requests(
@@ -1971,10 +2482,10 @@ def main() -> int:
                                  hi=nc["hi"], new=nc["new"]),
            SEED + 11, chunk_size=nc["chunk_size"])
     f32_launches = read_launches(kernels)
-    check_bodies("4-4e", f32_launches, "float32")
-    check(f32_launches["paged_prefill_attention"] > 0, "phases 4-4e: "
+    check_bodies("4-4f", f32_launches, "float32")
+    check(f32_launches["paged_prefill_attention"] > 0, "phases 4-4f: "
           f"kernel 1 never launched: {f32_launches}")
-    print(f"phases 4-4e: launches {f32_launches}: every f32 launch of "
+    print(f"phases 4-4f: launches {f32_launches}: every f32 launch of "
           "kernels 1 and 3 on the CUDA-core body")
 
     # -- phase 5: kernel times at the served shapes (bf16) ---------------
@@ -2104,6 +2615,8 @@ def main() -> int:
             dtype, card, body=DECODE_BODY)
         del pools8
     profile_rows(card)
+    # -- phase 3j's traced run: the card's idle and overlap shares --------
+    async_trace_phase(cfg, device, card)
     launches["paged_mla_decode_attention"] = ds_launches[
         "paged_mla_decode_attention"]
     launches["paged_cross_decode_attention"] = vlm_launches[

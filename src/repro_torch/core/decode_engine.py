@@ -22,8 +22,22 @@ The model runs on ``device`` ("cuda" unless the caller asks for "cpu");
 ``params`` must live there.  A batch where some request's
 ``SamplingParams`` asks for sampling (temperature > 0) passes per-slot
 temperatures, top-k and step seeds to ``model.sample_tokens``; a
-greedy batch takes the plain argmax call.  The dense backend and the
-prefix cache raise ``NotImplementedError``.
+greedy batch takes the plain argmax call.
+
+With ``prefix_cache=True`` (unwindowed configs, as on the prefill side)
+admission aliases the leading pages of a request that another request
+installed and committed, and installs only the payload's fresh suffix;
+a request whose encoder input equals a resident or committed one's
+aliases its cross pages and installs no cross payload.  A slot that
+then appends onto a shared page gets a private copy first (the
+allocator's copy-on-write, replayed on the device pool).
+
+On the card every call runs on the calling thread's current stream.
+Admission makes that stream wait on each payload's ``ready`` event (the
+prefill side's stream may be another) and marks the payload's tensors
+used by it, so the caching allocator does not hand their memory back
+to the prefill stream while this one still reads them.  The dense
+backend raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -67,10 +81,6 @@ class DecodeEngine:
                  n_pages: int = 512, page_size: int = 16,
                  backend: str = "auto", prefix_cache: bool = False,
                  device="cuda"):
-        if prefix_cache:
-            raise NotImplementedError(
-                "prefix cache on the engines: comes with the prefix-cache "
-                "slice")
         self.iid = iid
         self.cfg = cfg
         self.params = params
@@ -80,9 +90,12 @@ class DecodeEngine:
         self.spec = backend_for(cfg, backend)
         self.backend = self.spec.backend
         self.enc_ctx = self.spec.cross_ctx
+        # same gating as the prefill side: stable page content
+        self.prefix_cache = prefix_cache and not cfg.sliding_window
         self.alloc = PagedAllocator(n_pages=n_pages, page_size=page_size,
                                     window=cfg.sliding_window,
-                                    cross_tokens=self.enc_ctx)
+                                    cross_tokens=self.enc_ctx,
+                                    prefix_cache=self.prefix_cache)
         self.scheduler = DecodeScheduler(self.alloc, policy=policy,
                                          max_batch=max_slots)
         self.page_size = page_size
@@ -130,6 +143,7 @@ class DecodeEngine:
             if slot is None:
                 raise RuntimeError("scheduler admitted past slot capacity")
             pk = self._pending.pop(req.rid)
+            self._await_payload(pk)
             # stage the received pages for the pages the scheduler's
             # admission just allocated; the block-table row is the
             # allocator's table
@@ -139,21 +153,29 @@ class DecodeEngine:
                     f"{req.rid}: the paged decode engine needs a "
                     "page-granular payload from a paged prefill engine "
                     "with the same page_size")
-            pages.extend(live)
-            payload_k.append(pk.pages_k)
-            payload_v.append(pk.pages_v)
+            # prefix-cache hits were aliased by the admission alloc: their
+            # contents are already in this pool (installed by the cache
+            # entry's first request), so only the fresh suffix pages take
+            # the payload
+            hit = self.alloc.cached_prefix_pages(req.rid)
+            pages.extend(live[hit:])
+            if hit < len(live):
+                payload_k.append(pk.pages_k[:, hit:])
+                payload_v.append(pk.pages_v[:, hit:])
             if self.spec.cross == "pages":
                 # the one-shot cross payload lands in the cross pages the
-                # admission alloc drew from the same pool
+                # admission alloc drew from the same pool, unless the
+                # alloc aliased them to another request's encoder pages
                 ctab = self.alloc.cross_table(req.rid)
                 if pk.cross_k is None or pk.cross_k.shape[1] != len(ctab):
                     raise ValueError(
                         f"{req.rid}: a cross-attention arch needs the "
                         "encoder pages shipped beside the self KV")
-                pages.extend(ctab)
-                payload_k.append(pk.cross_k)
-                payload_v.append(pk.cross_v)
-                self.alloc.commit_cross(req.rid)
+                if not self.alloc.cross_cached(req.rid):
+                    pages.extend(ctab)
+                    payload_k.append(pk.cross_k)
+                    payload_v.append(pk.cross_v)
+                    self.alloc.commit_cross(req.rid)
             self.slots[slot] = SlotState(req=req,
                                          last_token=pk.first_token,
                                          tokens=[pk.first_token])
@@ -178,6 +200,18 @@ class DecodeEngine:
                 self.scheduler.finish(req.rid)
                 del self.slots[s]
         return admitted
+
+    def _await_payload(self, pk: PrefilledKV) -> None:
+        """Order this thread's stream after the prefill side's copies of
+        ``pk`` and keep the payload's memory from going back to the
+        prefill stream while this stream may still read it."""
+        if pk.ready is None:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(pk.ready)
+        for t in (pk.pages_k, pk.pages_v, pk.cross_k, pk.cross_v):
+            if t is not None:
+                t.record_stream(stream)
 
     def step(self, now: float) -> List[FinishedRequest]:
         """One continuous-batching decode iteration over the slot batch."""

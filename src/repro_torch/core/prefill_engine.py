@@ -13,11 +13,22 @@ finished request ships the cross pages beside the self KV.  With a
 sliding window, the pages the processed prefix slid past are freed
 after every chunk, so a finished request ships only its in-window pages.
 
+With ``prefix_cache=True`` (unwindowed configs; a no-op with a sliding
+window, as in the reference) each request's full prompt pages are keyed
+by a chain hash of their tokens: a request whose leading pages another
+finished request already committed aliases them and its segments start
+after them (up to the last full page before its final prompt token),
+and a request whose encoder input equals a committed one's aliases its
+cross pages and runs no encoder work.  A finished request commits its
+pages to the cache before it frees them.
+
 Host-side bookkeeping is the reference's: pad to powers of two, tables
 built with numpy, first tokens copied to the host.  The model runs on
 ``device`` ("cuda" unless the caller asks for "cpu"); ``params`` must
-live there.  The dense backend and the prefix cache (with its cross-page
-dedupe) come with their slices.
+live there.  On the card every step runs on the calling thread's
+current stream; a finished request's payload carries an event recorded
+on it after the gather, which the decode side waits on before it reads
+the payload.  The dense backend comes with its slice.
 """
 from __future__ import annotations
 
@@ -33,7 +44,9 @@ from repro_torch.core.backend import backend_for
 from repro_torch.core.kv_transfer import NetworkStack
 from repro_torch.core.sched.dispatcher import Dispatcher
 from repro_torch.core.sched.prefill_scheduler import PrefillScheduler
-from repro_torch.kvcache.paged import OutOfPages, PagedAllocator, PagePool
+from repro_torch.kvcache.paged import (OutOfPages, PagedAllocator,
+                                       PagePool, request_cross_key,
+                                       request_page_keys)
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.request import Phase, Request
@@ -49,7 +62,10 @@ class PrefilledKV:
     builds a block-table row.  Cross-attention archs also ship
     ``cross_k``/``cross_v``, copies of the read-only encoder pages (L,
     cross_pages, page, kvh, hd), covering ``enc_len`` encoder tokens:
-    a one-shot payload, amortized over the whole decode."""
+    a one-shot payload, amortized over the whole decode.  On the card
+    ``ready`` is a CUDA event recorded on the prefill side's stream
+    after the copies: a reader on another stream waits on it first (and
+    marks the tensors used by its stream).  ``None`` on the CPU."""
     req: Request
     first_token: int             # argmax token from prefill (the 'first token')
     transfer_delay_s: float      # emulated network wait
@@ -60,10 +76,13 @@ class PrefilledKV:
     cross_k: object = None       # cross-attention archs only
     cross_v: object = None
     enc_len: int = 0
-    # whether the cross pages were aliased from the prefix cache (the
-    # encoder ran 0 times for this request); False until the port has
-    # the cache
+    # prefix-cache accounting: leading prompt tokens whose pages the
+    # prefill side aliased (skipped recompute and wire bytes), and
+    # whether the cross pages were aliased (the encoder ran 0 times for
+    # this request)
+    cached_tokens: int = 0
     cross_cached: bool = False
+    ready: Optional[torch.cuda.Event] = None
 
 
 def _pow2(n: int) -> int:
@@ -103,10 +122,6 @@ class PrefillEngine:
                  backend: str = "auto",
                  n_pages: int = 512, page_size: int = 16,
                  prefix_cache: bool = False, device="cuda"):
-        if prefix_cache:
-            raise NotImplementedError(
-                "prefix cache on the engines: comes with the prefix-cache "
-                "slice")
         self.iid = iid
         self.cfg = cfg
         self.params = params
@@ -130,9 +145,14 @@ class PrefillEngine:
         self.fused_calls = 0         # one per chunk on the paged backend
         self.encoder_calls = 0       # chunks that ran encoder + scatter
         self.enc_ctx = self.spec.cross_ctx
+        # the prefix cache needs stable page content (no sliding-window
+        # trims); a no-op with a window
+        self.prefix_cache = prefix_cache and not cfg.sliding_window
+        self._page_keys: Dict[str, List[bytes]] = {}
         self.alloc = PagedAllocator(n_pages=n_pages, page_size=page_size,
                                     window=cfg.sliding_window,
-                                    cross_tokens=self.enc_ctx)
+                                    cross_tokens=self.enc_ctx,
+                                    prefix_cache=self.prefix_cache)
         self.pool, self._trash = make_page_pool(cfg, n_pages, page_size,
                                                 self.device)
         self._bt_width = self.alloc.pages_for(max_seq)
@@ -172,6 +192,7 @@ class PrefillEngine:
             chunking.drop_rid(self._chunk_queue, rid))
         if self.alloc.has(rid):
             self.alloc.free(rid)
+        self._page_keys.pop(rid, None)
         return True
 
     # ------------------------------------------------------------------
@@ -185,8 +206,23 @@ class PrefillEngine:
         # backpressure instead of an OutOfPages crash mid-batch
         fit, defer = [], []
         for r in batch:
-            if self.alloc.can_admit(r.prompt_len, materialize_all=True):
-                self.alloc.alloc(r.rid, r.prompt_len, materialize_all=True)
+            keys = cross_key = None
+            if self.prefix_cache:
+                # alias at most up to the last FULL page strictly before
+                # the final prompt token: the last token is always
+                # recomputed, so the request still emits its first token
+                full = request_page_keys(r, self.page_size) or []
+                self._page_keys[r.rid] = full
+                keys = full[:max(0, (r.prompt_len - 1) // self.page_size)]
+                if self.spec.cross == "pages":
+                    cross_key = request_cross_key(r)
+            if self.alloc.can_admit(r.prompt_len, materialize_all=True,
+                                    page_keys=keys, cross_key=cross_key):
+                self.alloc.alloc(r.rid, r.prompt_len, materialize_all=True,
+                                 page_keys=keys, cross_key=cross_key)
+                r.cached_prefix_pages = self.alloc.cached_prefix_pages(r.rid)
+                r.cached_prefix_tokens = self.alloc.cached_prefix_tokens(
+                    r.rid)
                 fit.append(r)
             else:
                 if self.alloc.pages_for(max(1, r.prompt_len)) \
@@ -200,7 +236,12 @@ class PrefillEngine:
         if not fit:
             return
         pairs = [(r.rid, r.prompt_len) for r in fit]
-        self._chunk_queue.extend(chunking.partition(pairs, self.chunk_size))
+        # cached-prefix pages are skipped, not recomputed: each request's
+        # segments start at its first uncached token
+        starts = {r.rid: r.cached_prefix_tokens for r in fit
+                  if r.cached_prefix_tokens}
+        self._chunk_queue.extend(chunking.partition(
+            pairs, self.chunk_size, starts=starts or None))
         for r in fit:
             r.phase = Phase.PREFILL
 
@@ -273,9 +314,11 @@ class PrefillEngine:
                         seg.rid)
                         and not self.alloc.cross_cached(seg.rid)):
                     # one-shot cross-KV prefill: only a request's FIRST
-                    # segment scatters the encoder K/V into its cross
-                    # pages; later chunks only read them (cpg stays at
-                    # the scratch page: their write lands there)
+                    # segment (right after any cached prefix) scatters the
+                    # encoder K/V into its cross pages; later chunks only
+                    # read them, and a request whose cross pages are
+                    # aliased from the cache never writes them (cpg stays
+                    # at the scratch page: those writes land there)
                     if req.enc_embeds is not None:
                         enc[i].copy_(torch.as_tensor(req.enc_embeds))
                     cpg[i] = ctab[np.arange(self.enc_ctx) // ps]
@@ -296,7 +339,8 @@ class PrefillEngine:
             to_device(off, dev), self.pool.k, self.pool.v, **cross_args)
         self.fused_calls += 1
         for rid in scattered:
-            # a no-op until the prefix cache publishes cross pages
+            # the cross pages now hold the encoder K/V: publish them, so
+            # later requests with the same encoder input alias them
             self.alloc.commit_cross(rid)
         next_tok = next_tok.cpu().numpy()
         finished: List[PrefilledKV] = []
@@ -320,10 +364,14 @@ class PrefillEngine:
                                      n_chunks=n_chunks,
                                      page_size=self.page_size,
                                      enc_len=enc_len,
+                                     cached_tokens=req.cached_prefix_tokens,
                                      cross_cached=cross_cached)
         req.phase = Phase.TRANSFER
         # gather() returns a COPY of the live pages, which are freed right
-        # below: the payload survives the next chunk scattering into them
+        # below: the payload survives the next chunk scattering into them.
+        # It still carries any cached-prefix pages (live aliases in this
+        # pool), so a decode side without those cache entries stays
+        # correct; the wire accounting above leaves them out.
         pages_k, pages_v = self.pool.gather(self.alloc.live_pages(req.rid))
         cross_k = cross_v = None
         if enc_len:
@@ -332,6 +380,15 @@ class PrefillEngine:
             # encoder K/V; the wire bytes count those alone)
             cross_k, cross_v = self.pool.gather(
                 self.alloc.cross_table(req.rid))
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        # publish the finished request's full prompt pages under their
+        # keys BEFORE freeing: the cache keeps them alive (refcounted)
+        # for the next request sharing this prefix
+        if self.prefix_cache:
+            self.alloc.commit(req.rid, self._page_keys.pop(req.rid, []))
         self.alloc.free(req.rid)
         self._reqs.pop(req.rid)
         return PrefilledKV(req=req, first_token=first_tok,
@@ -339,7 +396,8 @@ class PrefillEngine:
                            pages_k=pages_k, pages_v=pages_v,
                            kv_len=req.prompt_len, cross_k=cross_k,
                            cross_v=cross_v, enc_len=enc_len,
-                           cross_cached=cross_cached)
+                           cached_tokens=req.cached_prefix_tokens,
+                           cross_cached=cross_cached, ready=ready)
 
     def _note_finished(self, req: Request, now: float) -> int:
         req.t_first_token = now     # chunked prefill emits the first token
@@ -348,7 +406,10 @@ class PrefillEngine:
                 req.prompt_tokens, req.decode_len)
             req.predicted_bucket, req.predicted_lo, req.predicted_hi = \
                 b, lo, hi
-        return chunking.chunks_for(req.prompt_len, self.chunk_size)
+        # cached-prefix tokens were never chunked, so they add no
+        # chunk-granular transfer slices either
+        return chunking.chunks_for(
+            req.prompt_len - req.cached_prefix_tokens, self.chunk_size)
 
     def select_decode_instance(self, loads, req: Request) -> Optional[str]:
         return self.dispatcher.select(

@@ -6,7 +6,9 @@ Libraries land in ``build/`` beside this file (listed in .gitignore),
 named by a hash of the sources and flags, so an edited source never
 loads a stale library.  All missing libraries are built at once, one
 ``nvcc`` process per source started together.  Nothing is built when
-this module is imported: the first ``load`` builds.
+this module is imported: the first ``load`` builds.  ``load`` is safe to
+call from several threads: one lock makes the first use compile each
+library once.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, List
 
@@ -30,6 +33,10 @@ NAMES = ("paged_prefill_attention", "paged_decode_attention",
          "chunked_prefill_attention")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# one build at a time in this process: two threads' first uses would
+# otherwise compile the same libraries into the same temporary files
+# (reentrant: ``load`` holds it around ``build``)
+_build_lock = threading.RLock()
 
 
 def nvcc() -> str:
@@ -56,37 +63,43 @@ def build(names=NAMES) -> Dict[str, str]:
     """Compile every library of ``names`` that is not built yet, all in
     parallel.  Returns {name: ptxas report} for the ones compiled now.
     Raises with the compiler's output if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in names if not library_path(n).exists()]
-    procs: List[tuple] = []
-    for n in todo:
-        out = library_path(n)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
-        procs.append((n, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    reports, failed = {}, []
-    for n, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{n}:\n{log}")
-            tmp.unlink(missing_ok=True)
-            continue
-        os.replace(tmp, out)
-        reports[n] = log
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return reports
+    with _build_lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        todo = [n for n in names if not library_path(n).exists()]
+        procs: List[tuple] = []
+        for n in todo:
+            out = library_path(n)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{n}.cu")]
+            procs.append((n, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        reports, failed = {}, []
+        for n, out, tmp, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{n}:\n{log}")
+                tmp.unlink(missing_ok=True)
+                continue
+            os.replace(tmp, out)
+            reports[n] = log
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n"
+                               + "\n".join(failed))
+        return reports
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build()
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        with _build_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build()
+                lib = ctypes.CDLL(str(library_path(name)))
+                _loaded[name] = lib
     return lib
 
 
@@ -140,25 +153,45 @@ def raw_stream(device) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-# device -> (float32 partial states, int32 split counters) of the decode
-# kernels (2, 3 and 4): kept between calls, as the counters must start at
-# zero and every launch leaves them there; launches on one stream use
-# them in turn
+# (device, raw stream) -> (float32 partial states, int32 split counters)
+# of the decode kernels (2, 3 and 4), kept between calls: the counters
+# must start at zero and every launch leaves them there.  Launches on one
+# stream use them in turn; two streams never share them.  A buffer that
+# grows is allocated on its own stream and the old one goes back to the
+# caching allocator there, which hands it out again only to later work
+# of that stream, after the launches already queued on it.
 _workspaces: dict = {}
+_workspace_lock = threading.Lock()
 
 
-def workspace(device, n_part: int, n_counters: int):
-    """The device's workspace, grown to at least ``n_part`` floats and
+def workspace(device, stream: int, n_part: int, n_counters: int):
+    """The workspace of ``device``'s raw ``stream`` (the current stream,
+    as ``raw_stream`` reads it), grown to at least ``n_part`` floats and
     ``n_counters`` zeroed int32 counters."""
     import torch
-    part, counters = _workspaces.get(device, (None, None))
-    if part is None or part.numel() < n_part:
-        part = torch.empty(max(n_part, 1), dtype=torch.float32,
-                           device=device)
-    if counters is None or counters.numel() < n_counters:
-        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
-    _workspaces[device] = part, counters
+    key = (device, stream)
+    with _workspace_lock:
+        part, counters = _workspaces.get(key, (None, None))
+        if part is None or part.numel() < n_part:
+            part = torch.empty(max(n_part, 1), dtype=torch.float32,
+                               device=device)
+        if counters is None or counters.numel() < n_counters:
+            counters = torch.zeros(n_counters, dtype=torch.int32,
+                                   device=device)
+        _workspaces[key] = part, counters
     return part, counters
+
+
+# the wrappers' launch counters are read-modify-writes shared by every
+# thread that launches
+_count_lock = threading.Lock()
+
+
+def count(wrapper, *counters: str) -> None:
+    """Add one to each named launch counter of ``wrapper``."""
+    with _count_lock:
+        for c in counters:
+            setattr(wrapper, c, getattr(wrapper, c) + 1)
 
 
 def raise_on_error(kernel: str, err: int) -> None:

@@ -107,9 +107,9 @@ def chunked_prefill_attention(q, k_cache, v_cache, kv_len, q_offset: int,
     err = _launcher()(args.buffer_info()[0], hd ** -0.5,
                       build.raw_stream(dev))
     build.raise_on_error(NAME, err)
-    chunked_prefill_attention.launches += 1
-    if plan.body == TENSOR_CORE:
-        chunked_prefill_attention.tensor_core_launches += 1
+    build.count(chunked_prefill_attention, "launches",
+                *(("tensor_core_launches",) if plan.body == TENSOR_CORE
+                  else ()))
     return out
 
 

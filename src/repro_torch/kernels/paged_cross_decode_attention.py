@@ -23,7 +23,7 @@ kernel launches.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 from repro_torch.kernels.paged_decode_attention import launch
 
 NAME = "paged_cross_decode_attention"
@@ -43,7 +43,7 @@ def paged_cross_decode_attention(q, k_pool, v_pool, block_table, enc_lens):
         raise ValueError(f"{NAME}: no kernel for device {q.device}")
     out = launch(NAME, "paged_cross_decode_attention_launch", q, k_pool,
                  v_pool, block_table, enc_lens, 0)
-    paged_cross_decode_attention.launches += 1
+    build.count(paged_cross_decode_attention, "launches")
     return out
 
 

@@ -103,8 +103,10 @@ def launch(name: str, symbol: str, q, k_pool, v_pool, block_table, lens,
     plan = decode_plan(q.dtype, b, h, kvh, hd, hd_v, page, n_slots,
                        sm_count(dev))
     out = q.new_empty((b, h, hd_v))
+    stream = build.raw_stream(dev)
     part, counters = build.workspace(
-        dev, 0 if plan.splits == 1 else b * h * plan.splits * (hd_v + 2),
+        dev, stream,
+        0 if plan.splits == 1 else b * h * plan.splits * (hd_v + 2),
         b * kvh)
     args = array("q", (
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -112,7 +114,7 @@ def launch(name: str, symbol: str, q, k_pool, v_pool, block_table, lens,
         part.data_ptr(), counters.data_ptr(), b, h, kvh, hd, page, n_slots,
         plan.splits, int(window), build.DTYPE_CODES[str(q.dtype)]))
     err = _launcher(name, symbol)(args.buffer_info()[0], hd ** -0.5,
-                                  build.raw_stream(dev))
+                                  stream)
     build.raise_on_error(name, err)
     return out
 
@@ -131,7 +133,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lens, *,
         raise ValueError(f"{NAME}: no kernel for device {q.device}")
     out = launch(NAME, "paged_decode_attention_launch", q, k_pool, v_pool,
                  block_table, lens, window)
-    paged_decode_attention.launches += 1
+    build.count(paged_decode_attention, "launches")
     return out
 
 

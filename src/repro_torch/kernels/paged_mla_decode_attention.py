@@ -131,8 +131,9 @@ def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, kr_pool,
                     n_slots, sm_count(dev))
     out = q_lat.new_empty((b, h, lora))
     n_pairs = b * plan.head_blocks
+    stream = build.raw_stream(dev)
     part, counters = build.workspace(
-        dev, 0 if plan.splits == 1
+        dev, stream, 0 if plan.splits == 1
         else n_pairs * plan.splits * plan.heads * (lora + 2), n_pairs)
     args = array("q", (
         q_lat.data_ptr(), q_rope.data_ptr(), ckv_pool.data_ptr(),
@@ -141,12 +142,11 @@ def paged_mla_decode_attention(q_lat, q_rope, ckv_pool, kr_pool,
         rope, page, n_slots, plan.splits, int(window), plan.smem,
         plan.threads, build.DTYPE_CODES[str(q_lat.dtype)],
         build.DTYPE_CODES[str(ckv_pool.dtype)]))
-    err = _launcher()(args.buffer_info()[0], float(scale),
-                      build.raw_stream(dev))
+    err = _launcher()(args.buffer_info()[0], float(scale), stream)
     build.raise_on_error(NAME, err)
-    paged_mla_decode_attention.launches += 1
-    if plan.body == TENSOR_CORE:
-        paged_mla_decode_attention.tensor_core_launches += 1
+    build.count(paged_mla_decode_attention, "launches",
+                *(("tensor_core_launches",) if plan.body == TENSOR_CORE
+                  else ()))
     return out
 
 

@@ -110,11 +110,10 @@ def paged_prefill_attention(q, k_pool, v_pool, block_table, kv_len,
     err = _launcher()(args.buffer_info()[0], hd ** -0.5,
                       build.raw_stream(dev))
     build.raise_on_error(NAME, err)
-    paged_prefill_attention.launches += 1
-    if plan.body == TENSOR_CORE:
-        paged_prefill_attention.tensor_core_launches += 1
-    if not causal:
-        paged_prefill_attention.noncausal_launches += 1
+    build.count(paged_prefill_attention, "launches",
+                *(("tensor_core_launches",) if plan.body == TENSOR_CORE
+                  else ()),
+                *(() if causal else ("noncausal_launches",)))
     return out
 
 

@@ -1,17 +1,25 @@
 """Serving launcher of the port: the real engines on a small model
-through the port's Cluster API (the ``--real`` path of the reference's
-``src/repro/launch/serve.py``, with its observability flags).
+through the port's serving API (the ``--real`` and ``--wall-clock``
+paths of the reference's ``src/repro/launch/serve.py``, with its
+observability flags).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --real   # the card
   PYTHONPATH=src python -m repro_torch.launch.serve --real --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --real --wall-clock \
+      --arrival-rate 20 --arrival-process poisson --requests 12
+
+``--wall-clock`` runs the wall-clock ``AsyncCluster`` (each instance on
+its own worker thread and, on the card, its own CUDA stream; overlapped
+KV transfer) driven open-loop from an arrival process, and reports
+TTFT/JCT in wall seconds.
 
 Observability (docs/observability.md): ``--trace-out t.json`` writes a
 Perfetto-loadable trace, ``--trace-jsonl t.jsonl`` the raw records,
 ``--metrics-out m.json`` a metrics-registry snapshot, and
 ``--slo-ttft``/``--slo-tbt`` add SLO attainment to the summary.  The
-reference's other modes raise here: the cost-model run (the default
-without ``--real``) comes with the sim slice (ROADMAP A.12) and
-``--wall-clock`` with the async runtime (A.10).
+reference's cost-model run (the default without ``--real`` or
+``--wall-clock``) raises here: it comes with the sim slice (ROADMAP
+A.12).
 """
 from __future__ import annotations
 
@@ -108,6 +116,66 @@ def _run_real(args):
     _dump_obs(args, tracer, metrics)
 
 
+def _run_wall_clock(args):
+    """The wall-clock async runtime: concurrent instances and overlapped
+    KV transfer, driven open-loop from an arrival process; the small f32
+    qwen2 config on ``args.device``, random weights from seed 0."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.runtime.workload import generate
+    from repro_torch.serving import (ArrivalSchedule, AsyncCluster,
+                                     OpenLoopClient)
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2_0_5b"),
+                              dtype="float32")
+    print(f"model: {cfg.name}  layers={cfg.n_layers} d={cfg.d_model}")
+    params = M.init_params(
+        cfg, torch.Generator(device=args.device).manual_seed(0),
+        args.device)
+    reqs = generate(args.workload, min(args.requests, 32), seed=0,
+                    max_prompt=48, max_decode=12,
+                    vocab_size=cfg.vocab_size)
+    sched = ArrivalSchedule(process=args.arrival_process,
+                            rate=args.arrival_rate, seed=0,
+                            period_s=args.arrival_period)
+    tracer, metrics, slo = _obs_from_args(args, clock="wall")
+    with AsyncCluster(cfg, params=params,
+                      n_prefill=args.n_prefill, n_decode=args.n_decode,
+                      prefill_policy=args.prefill_policy,
+                      decode_policy=args.decode_policy,
+                      dispatch_policy=args.dispatch,
+                      chunk_size=16, max_seq=128,
+                      overlap_transfer=args.overlap,
+                      tracer=tracer, metrics=metrics,
+                      device=args.device) as cluster:
+        client = OpenLoopClient(cluster, reqs, sched).start()
+        client.join()
+        if not cluster.drain(timeout=600):
+            raise TimeoutError("wall-clock run wedged (drain timed out)")
+        if cluster.worker_errors:
+            raise RuntimeError("worker errors:\n"
+                               + "\n".join(cluster.worker_errors))
+        for h in client.handles[:4]:
+            res = h.result(wait=False)
+            print(f"  {res.rid}: {len(res.tokens)} tokens "
+                  f"ttft={res.ttft:.3f}s jct={res.jct:.3f}s")
+        r = cluster.result(reqs, slo=slo)
+    m = r.metrics
+    print(f"open-loop {args.arrival_process} @ {args.arrival_rate} req/s"
+          f"  overlap_transfer={args.overlap}")
+    print(f"n={m['n']}  avg TTFT {m['avg_ttft']:.3f}s  "
+          f"avg JCT {m['avg_jct']:.3f}s  (wall seconds)")
+    print(f"makespan {m['makespan']:.2f}s  "
+          f"throughput {m['n'] / m['makespan']:.2f} req/s")
+    if "goodput" in m:
+        print(f"SLO goodput {m['goodput']:.3f} ({m['slo_good']} in-SLO)")
+    _dump_obs(args, tracer, metrics)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="Mixed",
@@ -129,8 +197,19 @@ def main(argv=None):
                     help="where the engines run: cuda (the default) or "
                          "cpu")
     ap.add_argument("--wall-clock", action="store_true",
-                    help="the reference's wall-clock async runtime "
-                         "(not ported yet)")
+                    help="wall-clock async runtime: concurrent "
+                         "instances, overlapped KV transfer, open-loop "
+                         "arrivals (implies the small real model)")
+    ap.add_argument("--arrival-rate", type=float, default=20.0,
+                    help="open-loop mean arrival rate, req/s")
+    ap.add_argument("--arrival-process", default="poisson",
+                    choices=["batch", "poisson", "bursty", "diurnal"])
+    ap.add_argument("--arrival-period", type=float, default=10.0,
+                    help="burst cycle / day length in seconds")
+    ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="overlap KV transfer with the next prefill "
+                         "chunk (--no-overlap serializes, the ablation)")
     # -- observability (docs/observability.md) --------------------------
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Chrome/Perfetto trace_event JSON "
@@ -148,9 +227,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.wall_clock:
-        raise NotImplementedError(
-            "--wall-clock (the async runtime) comes with the port's async "
-            "slice, ROADMAP A.10")
+        _run_wall_clock(args)
+        return
     if not args.real:
         raise NotImplementedError(
             "the cost-model run (no --real) comes with the port's sim "

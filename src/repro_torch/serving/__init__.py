@@ -7,6 +7,14 @@ CPU (``runtime="engine"``) — with a streaming request API on top:
 ``submit()`` → ``RequestHandle`` → iterate / ``cancel()`` /
 ``result()``, stop criteria via ``SamplingParams``.
 
+Wall-clock runtime (docs/async_runtime.md): ``AsyncCluster`` runs each
+instance on its own worker thread (and, on the card, its own CUDA
+stream) with overlapped KV transfer, measuring TTFT/JCT in wall
+seconds; ``AsyncRequestHandle`` is its streaming handle.
+``OpenLoopClient`` drives it from an ``ArrivalSchedule`` (Poisson /
+bursty / diurnal arrivals).  Both runtimes take ``prefix_cache=True``
+(docs/prefix_cache.md).
+
 Fault tolerance (docs/fault_tolerance.md): ``FaultSpec`` injects
 deterministic instance crashes/hangs and KV-transfer faults;
 ``RecoveryPolicy`` tunes detection timeouts, retry backoff and the
@@ -17,13 +25,12 @@ Observability (docs/observability.md): pass ``tracer=Tracer()`` and/or
 ``metrics=MetricsRegistry()`` for per-request span timelines (JSONL +
 Perfetto export), live counters/histograms and SLO attainment
 (``SLOSpec`` via ``result(slo=...)``) — all zero-cost when left off.
-
-The reference's wall-clock ``AsyncCluster``, ``AsyncRequestHandle``,
-``ArrivalSchedule`` and ``OpenLoopClient`` come with the async slice
-(ROADMAP A.10).
 """
 from repro_torch.obs import MetricsRegistry, SLOSpec, Tracer
 from repro_torch.runtime.request import SamplingParams
+from repro_torch.serving.arrivals import ArrivalSchedule, OpenLoopClient
+from repro_torch.serving.async_runtime import (AsyncCluster,
+                                               AsyncRequestHandle)
 from repro_torch.serving.cluster import (Cluster, ClusterStallError,
                                          RequestHandle, RequestResult,
                                          SimResult)
@@ -35,5 +42,6 @@ __all__ = [
     "Cluster", "ClusterStallError", "RequestHandle", "RequestResult",
     "SimResult", "SamplingParams", "FaultSpec", "FaultEvent",
     "RecoveryPolicy", "InstanceRuntime", "PrefillOutcome", "StepEvents",
-    "Tracer", "MetricsRegistry", "SLOSpec",
+    "Tracer", "MetricsRegistry", "SLOSpec", "AsyncCluster",
+    "AsyncRequestHandle", "ArrivalSchedule", "OpenLoopClient",
 ]

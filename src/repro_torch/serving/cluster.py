@@ -248,10 +248,6 @@ class Cluster:
             raise NotImplementedError(
                 "runtime='sim' (the cost-model SimInstance) comes with the "
                 "port's sim and fleet slice, ROADMAP A.12")
-        if prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache=True comes with the port's prefix-cache "
-                "slice, ROADMAP A.10")
         self.cfg = cfg
         self.runtime = runtime
         self.prefix_cache = prefix_cache

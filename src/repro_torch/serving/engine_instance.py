@@ -15,11 +15,22 @@ return, which waits for the step's device work, so the wall seconds
 around an engine call cover its kernels.  Both role facets exist up
 front, each with its own page pool on ``device``, so an instance flip
 is the same internal-variable change as in the reference.
+
+Under the wall-clock ``AsyncCluster`` every call into the engines takes
+the instance's reentrant ``lock``, and with ``own_stream=True`` on the
+card the instance has a CUDA ``stream`` of its own that every such
+call enters, so two instances' steps can run on the card at once.  The
+synchronous ``Cluster`` never contends on the lock and asks for no
+stream (``stream`` is ``None``): its steps run on the caller's current
+stream.
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import List, Optional
+
+import torch
 
 from repro_torch.core.decode_engine import DecodeEngine
 from repro_torch.core.kv_transfer import NetworkStack
@@ -37,8 +48,17 @@ class EngineInstance:
                  decode_policy="reserve-dynamic", max_slots=8,
                  n_pages=256, page_size=16, max_seq=128,
                  backend="auto", step_dt=0.01, prefix_cache=False,
-                 device="cuda"):
+                 device="cuda", own_stream=False):
         self.iid = iid
+        # serializes ALL engine calls on this instance under the
+        # wall-clock runtime: the instance's worker step, transfer-side
+        # decode_enqueue, cancels and the crash-recovery sweep.
+        # Reentrant so a holder can nest helper calls; the synchronous
+        # Cluster never contends on it.
+        self.lock = threading.RLock()
+        device = torch.device(device)
+        self.stream = (torch.cuda.Stream(device)
+                       if own_stream and device.type == "cuda" else None)
         self.flip = FlipMachine(role)
         self.step_dt = step_dt
         self.busy = 0.0

@@ -18,6 +18,15 @@ schedules a ``*_done`` event and calls ``*_complete`` at that time,
 which performs the step's effects and reports what finished.  The
 engine runtime runs the real model and bills a fixed virtual tick
 (``step_dt``).
+
+Concurrency extension: an instance that runs under the wall-clock
+``AsyncCluster`` also exposes a reentrant ``lock`` serializing every
+method above (the async runtime takes it around each worker step,
+transfer enqueue, cancel and recovery sweep) and a ``stream``: the CUDA
+stream its engine calls run on, entered by every thread that calls
+into it, or ``None`` (the caller's current stream; always on the CPU).
+``EngineInstance`` provides both; the synchronous event-loop
+``Cluster`` ignores them (single-threaded access).
 """
 from __future__ import annotations
 

@@ -374,14 +374,40 @@ def test_cluster_matches_reference(apis, reference, name):
         assert got[key] == want[key], key
 
 
+def prefix_cache_shared(S):
+    """tests/test_prefix_cache.py:485 at the Cluster's level: the prefix
+    cache on over shared-prefix traffic in waves of 2; hits on both
+    facets, bytes saved, no page leaked (cache entries only)."""
+    c = S.cluster(n_prefill=1, n_decode=1, chunk_size=8, max_seq=64,
+                  max_batch=4, n_pages=128, page_size=4, sched_batch=2,
+                  prefix_cache=True)
+    handles = [c.submit(request=r) for r in S.generate(
+        "Mixed", 8, seed=3, max_prompt=40, max_decode=6,
+        vocab_size=S.vocab, prefix_pool=2, prefix_len=32,
+        prefix_zipf=1.2)]
+    c.run()
+    assert all(h.result().phase == S.Phase.FINISHED for h in handles)
+    assert c.network.bytes_saved > 0
+    rec = _record(S, c, handles)
+    rec["hits"] = [(i.pe.alloc.cache_hits, i.de.alloc.cache_hits)
+                   for i in c.instances]
+    assert min(map(sum, zip(*rec["hits"]))) > 0
+    for i in c.instances:
+        for a in (i.pe.alloc, i.de.alloc):
+            assert a.free_pages + len(a.cache_pages()) == a.n_pages
+    return rec
+
+
 def test_cluster_refuses_what_is_not_ported(apis):
-    """The sim runtime and the prefix cache raise, naming their queue
-    items, instead of quietly degrading."""
+    """The sim runtime raises, naming its queue item, instead of quietly
+    degrading; ``prefix_cache=True`` gives the reference's record."""
     port = apis[1]
     with pytest.raises(NotImplementedError, match="A.12"):
         port.Cluster(None, runtime="sim")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        port.cluster(prefix_cache=True)
+    got, want = prefix_cache_shared(port), prefix_cache_shared(apis[0])
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key] == want[key], key
 
 
 def test_cluster_runs_on_the_device_it_is_given(apis):

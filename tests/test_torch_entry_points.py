@@ -9,7 +9,10 @@ same lines, ``OK`` last, and stream the same tokens.  ``serve --real``
 draws its own random weights on each side, but its requests stop at
 their oracle lengths, so every virtual-clock number of its summary must
 match: all lines but the tokens and the wall-clock resource time, and
-the trace and metrics files its observability flags write.
+the trace and metrics files its observability flags write.  ``serve
+--real --wall-clock`` (the AsyncCluster) prints the reference's summary
+lines: the same model, request count, arrival process and token counts;
+its times are wall seconds and differ.
 """
 import dataclasses
 import importlib.util
@@ -106,8 +109,37 @@ def test_serve_real_matches_reference(capsys, monkeypatch, tmp_path):
         ref_metrics.read_text())
 
 
-def test_serve_refuses_the_modes_not_ported():
+def _wall_summary(out):
+    """The lines of the wall-clock summary that do not depend on the
+    clock: the model, each printed request's token count, the arrival
+    process, the request count, and every line's leading words."""
+    keep = []
+    for line in out.splitlines():
+        if line.startswith("  r"):
+            keep.append(line.split(" tokens")[0])
+        elif line.startswith(("model:", "open-loop")):
+            keep.append(line)
+        elif line.startswith("n="):
+            keep.append(line.split()[0])
+        else:
+            keep.append(line.split()[0])
+    return keep
+
+
+def test_serve_refuses_the_modes_not_ported(capsys, monkeypatch):
+    """The cost-model run (no ``--real``) raises, naming its queue item;
+    ``serve --real --wall-clock`` runs the wall-clock AsyncCluster and
+    prints the reference's summary lines."""
     with pytest.raises(NotImplementedError, match="A.12"):
         serve.main(["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A.10"):
-        serve.main(["--real", "--wall-clock", "--device", "cpu"])
+    pytest.importorskip("jax")
+    from repro.launch import serve as ref_serve
+    args = ["--real", "--wall-clock", "--requests", "8", "--n-prefill",
+            "2", "--n-decode", "2"]
+    monkeypatch.setattr(sys, "argv", ["serve", *args])
+    ref_serve.main()
+    want = capsys.readouterr().out
+    serve.main([*args, "--device", "cpu"])
+    got = capsys.readouterr().out
+    assert _wall_summary(got) == _wall_summary(want)
+    assert "n=8 " in got and "(wall seconds)" in got

@@ -70,3 +70,25 @@ def test_kernel_sources_ship_with_the_port():
         text = (build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {name}_launch(' in text
         assert "src/repro/kernels/" in text     # names the TPU kernel
+
+
+def test_async_slice_modules_stand_alone():
+    """The wall-clock runtime, the open-loop client and the arrival
+    processes import with JAX and ``repro`` blocked, and none names
+    either."""
+    mods = ("repro_torch.serving.async_runtime",
+            "repro_torch.serving.arrivals", "repro_torch.fleet.traces")
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for n in {mods!r}:\n"
+            "    importlib.import_module(n)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    for name in mods:
+        path = ROOT / "src" / (name.replace(".", "/") + ".py")
+        roots = {n.split(".")[0] for n in _imported_roots(path)}
+        assert not roots & {"jax", "jaxlib", "repro"}, (name, roots)

@@ -666,3 +666,145 @@ def test_cuda_sample_tokens_matches_cpu():
         assert torch.equal(got.cpu(), cpu)
         assert torch.equal(cpu[::4], torch.argmax(logits[::4], dim=-1)
                            .to(torch.int32))
+
+
+def _load_from_threads(names, n_threads=4):
+    """``build.load`` of every library from ``n_threads`` threads at once,
+    each in its own order; returns {name: the libraries the threads got}."""
+    import threading
+
+    from repro_torch.kernels import build
+    got, errors = {n: [] for n in names}, []
+
+    def worker(w):
+        try:
+            for n in names[w % len(names):] + names[:w % len(names)]:
+                got[n].append(build.load(n))
+        except Exception as e:       # noqa: BLE001 — reported below
+            errors.append(e)
+    threads = [threading.Thread(target=worker, args=(w,), daemon=True)
+               for w in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    return got
+
+
+def _count_compiles(monkeypatch, tmp_path, popen):
+    """Point the build at an empty directory and count compiler starts."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_loaded", {})
+    started = []
+
+    def counting(cmd, *a, **kw):
+        started.append(cmd[cmd.index("-o") + 1])
+        return popen(cmd, *a, **kw)
+    monkeypatch.setattr(build.subprocess, "Popen", counting)
+    return started
+
+
+def test_build_load_from_threads_compiles_each_library_once(monkeypatch,
+                                                            tmp_path):
+    """Four threads' first uses of ``build.load`` on an empty build
+    directory start the compiler once per library (a stand-in compiler
+    that writes its output after a pause, and a stand-in loader)."""
+    import ctypes
+    import time
+
+    from repro_torch.kernels import build
+
+    class FakeCompiler:
+        def __init__(self, cmd, *a, **kw):
+            self.out = cmd[cmd.index("-o") + 1]
+            self.returncode = 0
+
+        def communicate(self):
+            time.sleep(0.05)
+            with open(self.out, "w") as f:
+                f.write("built")
+            return "ptxas info: 0 bytes spill", None
+
+    started = _count_compiles(monkeypatch, tmp_path, FakeCompiler)
+    monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: ("lib", path))
+    got = _load_from_threads(list(build.NAMES))
+    assert len(started) == len(set(started)) == len(build.NAMES)
+    for name, libs in got.items():
+        assert len(libs) == 4 and len(set(libs)) == 1, name
+        assert libs[0][1] == str(build.library_path(name))
+
+
+@pytest.mark.gpu
+def test_cuda_build_load_from_four_threads(monkeypatch, tmp_path):
+    """On the card's machine: four threads' first uses of ``build.load``
+    on an empty build directory compile each library once with nvcc, and
+    every thread gets the same loaded library."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import subprocess
+
+    from repro_torch.kernels import build
+    started = _count_compiles(monkeypatch, tmp_path, subprocess.Popen)
+    got = _load_from_threads(list(build.NAMES))
+    assert len(started) == len(set(started)) == len(build.NAMES)
+    for name, libs in got.items():
+        assert len(libs) == 4 and len({id(lib) for lib in libs}) == 1, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_decode_on_two_streams_at_once(dtype):
+    """On the card: kernel 2 launched from two threads, each on a stream
+    of its own, with no synchronisation between them, at a shape whose
+    plan splits each slot (the in-launch merge's counters and partial
+    states in play): every output equals its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import threading
+
+    from repro_torch.kernels.prefill_plan import sm_count
+    tdt = getattr(torch, dtype)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    dev = torch.device("cuda")
+    b, h, kvh, hd, page, nslots, npages = 2, 14, 2, 64, 16, 64, 160
+    assert decode_plan(tdt, b, h, kvh, hd, hd, page, nslots,
+                       sm_count(dev)).splits > 1
+    cases = []
+    for w in range(2):
+        q, kp, vp, bt, lens = _decode_case(
+            20 + w, b, h, kvh, hd, npages, page, nslots,
+            lens=[nslots * page, nslots * page - 37])
+        args = [torch.from_numpy(x).to(dev).to(tdt) for x in (q, kp, vp)]
+        args += [torch.from_numpy(x).to(dev) for x in (bt, lens)]
+        cases.append(args)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    outs, errors, reps = [[], []], [], 200
+    barrier = threading.Barrier(2)
+
+    def worker(w):
+        try:
+            with torch.cuda.stream(streams[w]):
+                streams[w].wait_stream(torch.cuda.default_stream(dev))
+                barrier.wait(timeout=60)
+                for _ in range(reps):
+                    outs[w].append(paged_decode_attention(*cases[w]))
+        except Exception as e:       # noqa: BLE001 — reported below
+            errors.append(e)
+    threads = [threading.Thread(target=worker, args=(w,), daemon=True)
+               for w in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    torch.cuda.synchronize()
+    for w in range(2):
+        exp = ref.paged_decode_attention(*cases[w])
+        worst = max(float((o.float() - exp.float()).abs().max())
+                    for o in outs[w])
+        assert len(outs[w]) == reps and worst < tol, (w, worst)

@@ -159,11 +159,13 @@ def test_prefill_page_backpressure(setup):
 
 
 def test_dense_backend_and_prefix_cache_raise(setup):
+    """The dense backend raises (ROADMAP A.11); the decode engine with the
+    prefix cache builds, its allocator caching."""
     cfg, _, params = setup
     with pytest.raises(NotImplementedError):
         PrefillEngine("p", cfg, params, device="cpu", backend="dense")
-    with pytest.raises(NotImplementedError):
-        DecodeEngine("d", cfg, params, device="cpu", prefix_cache=True)
+    de = DecodeEngine("d", cfg, params, device="cpu", prefix_cache=True)
+    assert de.prefix_cache and de.alloc.prefix_cache
 
 
 @pytest.mark.parametrize("n", [1, 4, 16, 17, 33])
