@@ -33,8 +33,15 @@ Phases, in order (any failure exits non-zero):
    prefill and decode kernels at the served shapes of OPT-13B (rep 1),
    Mistral-Nemo (rep 4, window 0 and its 4,096-token window on the
    windowed run's trimmed tables), Phi-4-mini and Granite (rep 3) and
-   DeepSeek-67B (rep 8).  bf16 outputs are held to a limit scaled by
-   the plain output's magnitude (``limit``).
+   DeepSeek-67B (rep 8).  2f: kernel 5 at the dense backend's served
+   shapes, f32 and bf16, on caches of garbage past kv_len:
+   RecurrentGemma's 512-query chunks at 0, 2,048 and 3,584 in caches of
+   4,096 (16 query heads over 1 KV head of 256, window 2,048): 4
+   requests a call with ragged kv_len and a 0, and one a call as phase
+   3m's engine gives them, whose bf16 plan splits the keys and merges
+   the shares, which 2f asserts; and the coupled OPT-13B's whole prompts
+   (up to 1,711 queries at 0).  bf16 outputs are held to a limit scaled by the plain
+   output's magnitude (``limit``).
    The prefill kernels (1 and 5) and the MLA decode kernel (3) run bf16
    on their tensor-core body and f32 on their CUDA-core body: 2d, 3-3i
    and 4-4e check it on the wrappers' ``tensor_core_launches``.
@@ -65,9 +72,17 @@ Phases, in order (any failure exits non-zero):
    with ``prefix_cache=True`` and without: hits, fewer fused calls and
    kernel-1 launches, fewer wire bytes, no leak.  3l: Whisper-tiny whole
    with the cache on, 8 requests of 2 encoder inputs: the encoder once
-   per input, decode slots sharing cross pages under kernel 4.  Every
-   kernel's launch counter is set to 0 just before each run and read
-   just after it.
+   per input, decode slots sharing cross pages under kernel 4.  3m:
+   RecurrentGemma-9B whole on the dense backend (chunks of 512, max_seq
+   4,096, prompts of 256-4,000, 3 past its 2,048-token window): kernel 5
+   launched 12 local-attention layers x the dense prefill calls, every
+   logit finite, the RG-LRU scan's share of the prefill seconds.  3n:
+   xLSTM-1.3B whole (4 requests of 16 tokens, max_seq 512): no attention
+   kernel, the time loops' shares.  3o: the coupled vLLM-style baseline
+   (``CoupledEngine``) on OPT-13B whole with 3f's weights and requests:
+   kernel 5 launched 40 layers x 8 whole prompts, the streams that equal
+   3f's.  Every kernel's launch counter is set to 0 just before each
+   run and read just after it.
 4. Device vs CPU in f32, once on the card (kernels) and once on the CPU
    (plain versions): qwen2-0.5b at 2 layers on the served requests (4),
    DeepSeek-V2 at 2 layers (dense prefix + 1 routed) on 2 short requests
@@ -82,12 +97,20 @@ Phases, in order (any failure exits non-zero):
    the sync ``Cluster`` on the CPU, phase 3k's with the cache on the
    card against cache-off on the CPU (and the cache-on payloads within
    f32 tolerance of cache-off's), and phase 3l's on Whisper whole with
-   the cache on against off: the same tokens.
+   the cache on against off: the same tokens.  4g: qwen2-0.5b at 2
+   layers through ``Cluster`` (2 + 2 instances) and ``CoupledEngine``,
+   on the card and on the CPU, all four token-identical (the reference's
+   output equivalence); RecurrentGemma at one pattern period (3 layers,
+   full width, window 64 in 64-token chunks) and xLSTM at its smoke
+   depth (full width, through ``Cluster``, and on the card also through
+   ``AsyncCluster``, whose dense payloads cross streams): card and CPU
+   token-identical, first-chunk logits within tolerance.
 5. Numbers: prefill and decode tokens/s of the served runs, and each
    kernel's time at the served shapes beside its bound, its plain
    version and one PyTorch library call, measured with CUDA events
    (kernels 1 and 2 also at OPT-13B's and windowed Mistral-Nemo's
-   shapes, the library call then on the in-window K/V),
+   shapes, kernel 5 at 3m's chunks and 3o's whole prompts, the library
+   call then on the in-window K/V),
    with its achieved TFLOP/s, the body it ran and the wrapper's host µs
    a call; then, every row timed, the card's device µs a call by the
    profiler, with the device TB/s and share of the bound.  Last, phase
@@ -99,6 +122,7 @@ The line before the last is the JSON kernel table; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -201,6 +225,23 @@ PREFIX_CLUSTER = dict(n_prefill=1, n_decode=1, sched_batch=2)
 # in GROUPS groups (several users sending one clip), prefilled one at a
 # time, so each request not deduped runs the encoder once
 DEDUPE = dict(n=8, groups=2)
+# phases 2f, 3m, 3n, 3o, 4g, 5: the dense backend.  RecurrentGemma-9B
+# whole: chunks of 512 in caches of 4,096; the seeded prompts of 256-4,000
+# put 3 of the 8 past its 2,048-token local window.  Phase 2f's kernel-5
+# chunks start at RG_CHUNKS.  xLSTM-1.3B whole: 4 slots, each holding
+# about 0.7 GB of f32 mLSTM state.
+RG_ARCH = "recurrentgemma_9b"
+RG_RUN = dict(n=N_REQUESTS, lo=256, hi=4000, new=NEW_TOKENS)
+RG_SERVE = dict(chunk_size=512, max_seq=4096, max_slots=8)
+RG_CHUNKS = (0, 2048, 3584)
+XLSTM_ARCH = "xlstm_1_3b"
+XLSTM_RUN = dict(n=4, lo=64, hi=256, new=16)
+XLSTM_SERVE = dict(max_seq=512, max_slots=4)
+# phase 4g: RecurrentGemma at one pattern period with a 64-token window
+# in 64-token chunks (the window bites), xLSTM at its smoke depth
+RG_CHECK = dict(window=64, n=2, lo=100, hi=300, new=8, chunk_size=64)
+XLSTM_CHECK = dict(n=2, lo=32, hi=96, new=8)
+XLSTM_CHECK_CHUNK = 64
 
 
 def check(cond: bool, msg: str) -> None:
@@ -635,33 +676,43 @@ def dense_keys(q, kv_len, q_off, window=0):
 
 def dense_work(q, k_cache, v_cache, kv_len, q_off, window=0):
     """(bytes, FLOPs) the dense prefill needs on these inputs: q read and
-    out written once, each request's K/V read once up to min(kv_len,
-    end of the chunk), and QK^T + PV for each (query head, key) the
-    masks admit."""
+    out written once, each request's K/V read once from the first key
+    the chunk's first query may see (the window's start) up to
+    min(kv_len, end of the chunk), and QK^T + PV for each (query head,
+    key) the masks admit."""
     es = q.element_size()
     b, sq, h, hd = q.shape
     kvh, hd_v = k_cache.shape[2], v_cache.shape[3]
-    kv = np.minimum(kv_len.cpu().numpy().astype(np.int64), q_off + sq)
+    lo = max(0, q_off - window + 1) if window else 0
+    kv = np.maximum(np.minimum(kv_len.cpu().numpy().astype(np.int64),
+                               q_off + sq) - lo, 0)
     nbytes = (q.numel() * es + b * sq * h * hd_v * es
               + int(kv.sum()) * kvh * (hd + hd_v) * es + 4 * b)
     keys = int(dense_keys(q, kv_len, q_off, window).sum())
     return nbytes, keys * h * 2 * (hd + hd_v)
 
 
-def sdpa_dense_call(q, k_cache, v_cache, kv_len, q_off):
+def sdpa_dense_call(q, k_cache, v_cache, kv_len, q_off, window=0):
     """One library call computing the dense prefill on the dense caches
     (heads expanded to the query heads) with the boolean causal and
-    length mask (a yardstick: the port never uses it)."""
+    length mask; with a window, on the keys from the first the chunk's
+    first query may see, and the window in the mask (a yardstick: the
+    port never uses it)."""
     import torch
     import torch.nn.functional as F
     b, sq, h, hd = q.shape
+    lo = max(0, q_off - window + 1) if window else 0
+    k_cache, v_cache = k_cache[:, lo:], v_cache[:, lo:]
     skv, rep = k_cache.shape[1], h // k_cache.shape[2]
     k = k_cache.permute(0, 2, 1, 3).repeat_interleave(rep, 1).contiguous()
     v = v_cache.permute(0, 2, 1, 3).repeat_interleave(rep, 1).contiguous()
-    k_pos = torch.arange(skv, device=q.device)
+    k_pos = lo + torch.arange(skv, device=q.device)
     q_pos = q_off + torch.arange(sq, device=q.device)
     mask = ((k_pos[None, None, :] < kv_len.long()[:, None, None])
-            & (q_pos[None, :, None] >= k_pos[None, None, :]))[:, None]
+            & (q_pos[None, :, None] >= k_pos[None, None, :]))
+    if window:
+        mask = mask & (k_pos[None, None, :] > q_pos[None, :, None] - window)
+    mask = mask[:, None]
     qt = q.permute(0, 2, 1, 3).contiguous()
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
@@ -1112,27 +1163,34 @@ def serve(cfg, params, reqs, device, time_it=False, watch=None, **over):
 
 
 class FirstLogits:
-    """Records, while active, the logits of the first
-    ``model.prefill_paged`` call (rows of segments with tokens), on the
-    CPU."""
+    """Records, while active, the logits of the first prefill call, on
+    the CPU: ``model.prefill_paged``'s rows of segments with tokens, or
+    the last position's of ``model.prefill`` (the dense backend)."""
 
     def __enter__(self):
         from repro_torch.models import model as M
-        self._saved = M.prefill_paged
+        self._saved = M.prefill_paged, M.prefill
         self.logits = None
+        paged, dense = self._saved
 
         def prefill(params, cfg, tokens, q_offset, kv_len, *a, **kw):
-            nxt, logits = self._saved(params, cfg, tokens, q_offset, kv_len,
-                                      *a, **kw)
+            nxt, logits = paged(params, cfg, tokens, q_offset, kv_len, *a,
+                                **kw)
             if self.logits is None:
                 self.logits = logits[kv_len > 0].float().cpu()
             return nxt, logits
-        M.prefill_paged = prefill
+
+        def prefill_dense(*a, **kw):
+            logits, cache = dense(*a, **kw)
+            if self.logits is None:
+                self.logits = logits[:, -1].float().cpu()
+            return logits, cache
+        M.prefill_paged, M.prefill = prefill, prefill_dense
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import model as M
-        M.prefill_paged = self._saved
+        M.prefill_paged, M.prefill = self._saved
 
 
 def to_device(tree, device):
@@ -1190,21 +1248,25 @@ def check_bodies(tag, launches, dtype):
 
 def serve_phase(tag, cfg, params, device, kernels, card,
                 prompts=PROMPT_RANGE, enc=None, n=N_REQUESTS,
-                new=NEW_TOKENS, watch=None, **over):
-    """Phase 3/3b-3d/3f-3h: warm up, then serve ``n`` requests of ``new``
-    tokens (tokens drawn in ``cfg``'s vocabulary, prompt lengths in
-    ``prompts``, frontend embeddings ``enc``; ``over`` replaces SERVE
+                new=NEW_TOKENS, watch=None, stats=None, hooks=(), **over):
+    """Phase 3/3b-3d/3f-3h/3m/3n: warm up, then serve ``n`` requests of
+    ``new`` tokens (tokens drawn in ``cfg``'s vocabulary, prompt lengths
+    in ``prompts``, frontend embeddings ``enc``; ``over`` replaces SERVE
     settings, ``watch`` as in serve) with every launch counter set to 0
-    just before and read just after.  Checks the run (every bf16 launch
-    of kernels 1, 5 and 3 on the tensor-core body) and prints its
-    numbers; returns (launches by kernel as ``read_launches`` gives them,
-    prefill engine, decode engine)."""
+    (and every one of ``hooks`` reset) just before and read just after.
+    Checks the run (every bf16 launch of kernels 1, 5 and 3 on the
+    tensor-core body; no page held on the paged backend) and prints its
+    numbers; ``stats``, a dict, takes the tokens by rid and the prefill
+    and decode seconds.  Returns (launches by kernel as
+    ``read_launches`` gives them, prefill engine, decode engine)."""
     reqs = make_requests(cfg.vocab_size, n=n, lo=prompts[0], hi=prompts[1],
                          new=new, enc=enc)
     warm = make_requests(cfg.vocab_size, n=1, lo=64, hi=64, new=2)
     # warm-up: libraries, cuBLAS
     serve(cfg, params, warm, device, **over)
     zero_launches(kernels)
+    for hook in hooks:
+        hook.reset()
     out, pe, de, t_pre, t_dec = serve(cfg, params, reqs, device,
                                       time_it=True, watch=watch, **over)
     launches = read_launches(kernels)
@@ -1214,17 +1276,22 @@ def serve_phase(tag, cfg, params, device, kernels, card,
         check(len(toks) == new, f"{rid}: {len(toks)} tokens")
         check(all(0 <= x < cfg.vocab_size for x in toks), f"{rid}: token "
               "out of the vocabulary")
-    check(pe.alloc.used_pages == 0 and de.alloc.used_pages == 0,
-          f"pages left: prefill {pe.alloc.used_pages}, decode "
-          f"{de.alloc.used_pages}")
+    dense = pe.backend == "dense"
+    check(de.alloc.used_pages == 0 and (dense or pe.alloc.used_pages == 0),
+          f"pages left: decode {de.alloc.used_pages}")
     n_prompt = sum(r.prompt_len for r in reqs)
     n_decoded = sum(len(t) - 1 for t in out.values())
-    print(f"phase {tag}: served {len(out)} requests, {pe.fused_calls} fused "
-          f"prefill calls, {de.iterations} decode iterations, launches "
-          f"{launches}, pages left 0/0")
+    calls = (f"{pe.chunk_steps} dense prefill chunks" if dense
+             else f"{pe.fused_calls} fused prefill calls")
+    print(f"phase {tag}: served {len(out)} requests, {calls}, "
+          f"{de.iterations} decode iterations, launches {launches}, "
+          f"pages left 0/0")
     print(f"phase {tag}: prefill {n_prompt} tokens in {t_pre:.3f} s = "
           f"{n_prompt / t_pre:.1f} tokens/s; decode {n_decoded} tokens in "
           f"{t_dec:.3f} s = {n_decoded / t_dec:.1f} tokens/s ({card})")
+    if stats is not None:
+        stats.update(out=out, t_pre=t_pre, t_dec=t_dec, n_prompt=n_prompt,
+                     n_decoded=n_decoded)
     return launches, pe, de
 
 
@@ -1997,15 +2064,17 @@ def check_slice8_kernels(device):
     return errs, geo
 
 
-def full_attention_phase(tag, run, device, kernels, card, watch=None):
+def full_attention_phase(tag, run, device, kernels, card, watch=None,
+                         then=None):
     """Phases 3f-3h: ``run["cfg"]`` (one of slice8_configs) in bf16 with
     random weights from SEED, served through the engines over its
     requests (SERVE overridden by its ``over``).  Besides serve_phase's
     checks: kernel 1
     launched n_layers x fused calls times, kernel 2 n_layers x
     iterations, kernels 3-5 never; the wire carried Σ kv_page_bytes of
-    the prompts (windowed for a windowed config).  Returns (launches,
-    wire bytes)."""
+    the prompts (windowed for a windowed config).  ``then(params,
+    tokens by rid)`` runs once the engines are freed, before the
+    weights are.  Returns (launches, wire bytes)."""
     import torch
     from repro_torch.core.kv_transfer import kv_page_bytes
     from repro_torch.models import model as M
@@ -2028,10 +2097,11 @@ def full_attention_phase(tag, run, device, kernels, card, watch=None):
           f"parameters in bf16, drawn in {time.perf_counter() - t0:.1f} s; "
           f"{len(reqs)} requests of {reqs[0].decode_len} new tokens, "
           f"prompts {lens}")
+    stats = {}
     launches, pe, de = serve_phase(
         tag, cfg, params, device, kernels, card,
         prompts=(rq["lo"], rq["hi"]), n=rq["n"], new=rq["new"],
-        watch=watch, **run["over"])
+        watch=watch, stats=stats, **run["over"])
     nl, fused, iters = cfg.n_layers, pe.fused_calls, de.iterations
     check(launches["paged_prefill_attention"] == nl * fused > 0
           and launches["paged_decode_attention"] == nl * iters > 0
@@ -2044,7 +2114,11 @@ def full_attention_phase(tag, run, device, kernels, card, watch=None):
     wire = sum(kv_page_bytes(cfg, r.prompt_len, ps) for r in reqs)
     check(pe.network.bytes_sent == wire, f"phase {tag}: "
           f"{pe.network.bytes_sent} bytes sent, expected {wire}")
-    del params, pe, de
+    del pe, de
+    torch.cuda.empty_cache()
+    if then is not None:
+        then(params, stats["out"])
+    del params
     torch.cuda.empty_cache()
     return launches, wire
 
@@ -2156,7 +2230,7 @@ def sampling_phase(cfg, params, device, card):
           f"({card})")
 
 
-def vs_cpu(tag, cfg, device, reqs_fn, seed, **over):
+def vs_cpu(tag, cfg, device, reqs_fn, seed, phase="4e", **over):
     """Phase 4e: ``cfg`` (f32) with weights drawn on the card and copied
     to the CPU, the requests ``reqs_fn()`` gives served on both: the same
     token streams, first-chunk logits within LOGIT_TOL."""
@@ -2179,11 +2253,468 @@ def vs_cpu(tag, cfg, device, reqs_fn, seed, **over):
           "emit different tokens")
     check(lerr <= LOGIT_TOL, f"phase 4e: {cfg.name}: first-chunk logits "
           f"differ by {lerr}")
-    print(f"phase 4e: {tag}: {cfg.n_layers}-layer f32 device vs CPU: "
+    print(f"phase {phase}: {tag}: {cfg.n_layers}-layer f32 device vs CPU: "
           f"{len(out_gpu)} token streams identical, first-chunk logits "
           f"max abs err {lerr:.3e} (tolerance {LOGIT_TOL:g}), "
           f"{time.perf_counter() - t0:.1f} s")
     del gpu_params, cpu_params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# slice 10: the dense backend (RecurrentGemma, xLSTM) and CoupledEngine
+# ---------------------------------------------------------------------------
+class EventTimer:
+    """Times every call of ``module.name`` with a pair of CUDA events
+    while active (``reset`` drops what was recorded); ``ms()`` syncs and
+    sums.  On the CPU it counts calls only."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.calls, self._events = 0, []
+
+    def reset(self):
+        self.calls, self._events = 0, []
+
+    def __enter__(self):
+        import torch
+        self._saved = fn = getattr(self.module, self.name)
+
+        def timed(*a, **kw):
+            self.calls += 1
+            if not torch.cuda.is_available():
+                return fn(*a, **kw)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            self._events.append((start, end))
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._saved)
+
+    def ms(self) -> float:
+        import torch
+        if not self._events:
+            return 0.0
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self._events)
+
+
+class FiniteLogits:
+    """Checks, while active, that every dense ``model.prefill`` and
+    ``model.decode_step`` call gives finite logits; ``prefill_calls``
+    counts the prefill calls since ``reset``."""
+
+    def reset(self):
+        self.prefill_calls = 0
+
+    def __enter__(self):
+        from repro_torch.models import model as M
+        self._saved = prefill, decode = M.prefill, M.decode_step
+        self.reset()
+
+        def checked(fn, what):
+            def call(*a, **kw):
+                logits, cache = fn(*a, **kw)
+                check(bool(logits.isfinite().all()), f"{what}: NaN or inf "
+                      "in the logits")
+                if fn is prefill:
+                    self.prefill_calls += 1
+                return logits, cache
+            return call
+        M.prefill = checked(prefill, "dense prefill")
+        M.decode_step = checked(decode, "dense decode")
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model as M
+        M.prefill, M.decode_step = self._saved
+
+
+def dense_served_case(cfg, b, sq, q_off, skv, kv_len, dtype, device, gen):
+    """(q, k_cache, v_cache, kv_len, q_off) at ``cfg``'s attention widths,
+    every cache position at or past a request's kv_len holding garbage
+    (+1e4 in K, -1e4 in V) that must never be read."""
+    import torch
+    hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+    k, v = randn(b, skv, kvh, hd), randn(b, skv, kvh, hd)
+    for i, n in enumerate(kv_len):
+        k[i, n:], v[i, n:] = 1e4, -1e4
+    return (randn(b, sq, cfg.n_heads, hd).to(dtype), k.to(dtype),
+            v.to(dtype), torch.tensor(kv_len, dtype=torch.int32,
+                                      device=device), q_off)
+
+
+def dense_served_shapes(rg_cfg, opt_cfg):
+    """Phase 2f's kernel-5 cases: (cfg, window, split, b, sq, q_off,
+    skv, kv_len), ``split`` true where the bf16 plan must split the keys
+    and merge the shares.  RecurrentGemma's 512-query chunks at each
+    RG_CHUNKS start in caches of max_seq, its local window: 4 requests
+    with ragged kv_len and a 0 (no split), and the one request a call
+    that phase 3m's prefill engine gives it, a full chunk at each start
+    and a short last one of 300 (split); the coupled OPT-13B's whole
+    prompts (one request a call, q_offset 0, a cache of max_seq): the
+    longest, a middle and the shortest of phase 3o's."""
+    sq, skv, w = (RG_SERVE["chunk_size"], RG_SERVE["max_seq"],
+                  rg_cfg.local_window)
+    out = [(rg_cfg, w, False, 4, sq, q0, skv,
+            [q0 + sq, q0 + 300, 0, q0 + 37]) for q0 in RG_CHUNKS]
+    out += [(rg_cfg, w, True, 1, sq, q0, skv, [q0 + sq])
+            for q0 in RG_CHUNKS]
+    out.append((rg_cfg, w, True, 1, 300, RG_CHUNKS[1], skv,
+                [RG_CHUNKS[1] + 300]))
+    lens = sorted(r.prompt_len for r in make_requests(
+        opt_cfg.vocab_size, lo=OPT_PROMPTS[0], hi=OPT_PROMPTS[1]))
+    for n in (lens[-1], lens[len(lens) // 2], lens[0]):
+        out.append((opt_cfg, 0, False, 1, n, 0, SERVE["max_seq"], [n]))
+    return out
+
+
+def check_dense_served(device, kernels):
+    """Phase 2f: kernel 5 against its plain version at the shapes the
+    dense backend serves it (``dense_served_shapes``), bf16 and f32, on
+    caches of garbage past kv_len: every row within ``limit``, rows
+    without an attendable key exactly 0, every bf16 launch on the
+    tensor-core body and no f32 one, and the cases marked ``split``
+    planned in more than one share in bf16 (so the partial records and
+    their merge are held too).  Returns the largest bf16 error."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chunked_prefill_attention import (
+        chunked_prefill_attention)
+    from repro_torch.kernels.prefill_plan import prefill_plan, sm_count
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    name, bf16_err = "chunked_prefill_attention", 0.0
+    for cfg, window, split, *shape in dense_served_shapes(
+            get_config(RG_ARCH), get_config(OPT_ARCH)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = dense_served_case(cfg, *shape, dtype, device, gen)
+            q, k, v, kv_len, q_off = args
+            splits = prefill_plan(dtype, *q.shape[:3], k.shape[2],
+                                  q.shape[3], v.shape[3], 1, k.shape[1],
+                                  sm_count(device)).splits
+            if split and dtype == torch.bfloat16:
+                check(splits > 1, f"phase 2f: {tuple(q.shape)} at {q_off} "
+                      f"planned {splits} share, not a split")
+            zero_launches(kernels)
+            got = chunked_prefill_attention(*args, window=window)
+            exp = ref.chunked_prefill_attention(*args, window=window)
+            torch.cuda.synchronize()
+            launches = read_launches(kernels)
+            check(launches[name] == 1 and launches[f"{name} (tensor cores)"]
+                  == int(dtype == torch.bfloat16), f"phase 2f: launches "
+                  f"{launches}")
+            check(bool(torch.isfinite(got).all()), "phase 2f: non-finite")
+            dead = torch.from_numpy(dense_keys(q, kv_len, q_off, window)
+                                    == 0).to(device)
+            check(float(got[dead].float().abs().sum()) == 0.0,
+                  "phase 2f: a row without keys is not 0")
+            worst = {}
+            compare(name, got, exp, worst)
+            err, share = worst[name]
+            if dtype == torch.bfloat16:
+                bf16_err = max(bf16_err, err)
+            print(f"phase 2f: {name} vs plain, {cfg.name}, {dtype}, "
+                  f"{q.shape[0]} x {q.shape[1]} queries at {q_off} of "
+                  f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+                  f"{cfg.resolved_head_dim}, cache {shape[3]}, kv_len "
+                  f"{shape[4]}, window {window}, {splits} share(s): "
+                  f"max abs err {err:.3e}, "
+                  f"{share:.3f} of the limit, {int(dead.sum())} rows "
+                  f"without keys exactly 0")
+    return bf16_err
+
+
+def dense_phase(tag, cfg, device, kernels, card, run, over, timers):
+    """Phases 3m / 3n: ``cfg`` whole in bf16 with random weights from
+    SEED on the dense backend, one prefill and one decode engine over
+    ``run``'s requests (``over`` replaces SERVE settings), every logit
+    finite.  ``timers`` (name: EventTimer) time a part of the model
+    during the served run; each one's share of the prefill seconds is
+    printed.  Returns (launches, prefill calls, stats)."""
+    import torch
+    from repro_torch.core.backend import backend_for
+    from repro_torch.models import model as M
+    check(backend_for(cfg).backend == "dense", f"phase {tag}: {cfg.name} "
+          "does not resolve to the dense backend")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(SEED), device)
+    torch.cuda.synchronize()
+    reqs = make_requests(cfg.vocab_size, **run)
+    kinds = ", ".join(f"{k} x {cfg.layer_kinds.count(k)}"
+                      for k in sorted(set(cfg.layer_kinds)))
+    print(f"phase {tag}: {cfg.name}, {cfg.n_layers} layers "
+          f"({kinds}), "
+          f"full width (d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads, vocab {cfg.vocab_size}), {count_params(params) / 1e9:.2f}"
+          f" G parameters in bf16, drawn in {time.perf_counter() - t0:.1f} "
+          f"s; {len(reqs)} requests of {run['new']} new tokens, prompts "
+          f"{[r.prompt_len for r in reqs]}")
+    stats = {}
+    with FiniteLogits() as finite, contextlib.ExitStack() as stack:
+        for tm in timers.values():
+            stack.enter_context(tm)
+        launches, pe, de = serve_phase(
+            tag, cfg, params, device, kernels, card, prompts=(run["lo"],
+                                                              run["hi"]),
+            n=run["n"], new=run["new"], stats=stats,
+            hooks=(finite, *timers.values()), **over)
+        calls = finite.prefill_calls
+    for what, tm in timers.items():
+        ms = tm.ms()
+        print(f"phase {tag}: {what}: {tm.calls} calls, {ms:.1f} ms, "
+              f"{100 * ms / 1e3 / stats['t_pre']:.1f}% of the prefill wall "
+              f"seconds ({card})")
+    del params, pe, de
+    torch.cuda.empty_cache()
+    return launches, calls, stats
+
+
+def rg_phase(device, kernels, card):
+    """Phase 3m: RecurrentGemma-9B whole (38 layers: 26 RG-LRU, 12 local
+    attention with a 2,048-token window) over 8 requests with prompts of
+    256-4,000 (3 past the window), chunks of 512, max_seq 4,096: kernel
+    5 launched 12 x the dense prefill calls (one a segment), all on the
+    tensor-core body; the RG-LRU scan's share of the prefill seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import recurrent as R
+    cfg = get_config(RG_ARCH)
+    reqs = make_requests(cfg.vocab_size, **RG_RUN)
+    check(sum(r.prompt_len > cfg.local_window for r in reqs) >= 3,
+          "phase 3m: fewer than 3 prompts past the window")
+    timers = {"RG-LRU scan (linear_scan)": EventTimer(R, "linear_scan")}
+    launches, calls, stats = dense_phase("3m", cfg, device, kernels, card,
+                                         RG_RUN, RG_SERVE, timers)
+    n_local = cfg.layer_kinds.count("local_attn")
+    name = "chunked_prefill_attention"
+    check(launches[name] == n_local * calls > 0
+          and sum(launches[k] for k in kernels) == launches[name],
+          f"phase 3m: launches {launches}, {calls} prefill calls x "
+          f"{n_local} local-attention layers")
+    print(f"phase 3m: kernel 5 launched {launches[name]} = {n_local} "
+          f"local-attention layers x {calls} dense prefill calls, "
+          f"{launches[name + ' (tensor cores)']} on the tensor-core body")
+    return launches
+
+
+def xlstm_phase(device, kernels, card):
+    """Phase 3n: xLSTM-1.3B whole (48 layers: 42 mLSTM, 6 sLSTM) on the
+    dense backend, 4 requests of 64-256 prompt tokens and 16 new, max_seq
+    512, 4 slots; no attention kernel launched (the model has none);
+    the time loops' shares of the prefill seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import recurrent as R
+    cfg = get_config(XLSTM_ARCH)
+    state = sum(t.numel() * t.element_size() for layer in M.init_cache(
+        cfg, 1, XLSTM_SERVE["max_seq"], device="meta") for t in layer.values())
+    print(f"phase 3n: one slot's recurrent state {state / 1e9:.3f} GB; "
+          f"{XLSTM_SERVE['max_slots']} decode slots "
+          f"{XLSTM_SERVE['max_slots'] * state / 1e9:.2f} GB")
+    timers = {"mLSTM time loop (mlstm_scan)": EventTimer(R, "mlstm_scan"),
+              "sLSTM time loop (slstm_scan)": EventTimer(R, "slstm_scan")}
+    launches, _, _ = dense_phase("3n", cfg, device, kernels, card,
+                                 XLSTM_RUN, XLSTM_SERVE, timers)
+    check(sum(launches[k] for k in kernels) == 0, f"phase 3n: launches "
+          f"{launches}: xLSTM has no attention")
+    return launches
+
+
+def run_coupled(eng, reqs, sync=lambda: None):
+    """Drive a CoupledEngine over ``reqs`` to the end; returns (tokens
+    by rid, prefill seconds, decode seconds)."""
+    for r in reqs:
+        eng.submit(r)
+    out, t, t_pre, t_dec = {}, 0.0, 0.0, 0.0
+    for _ in range(100_000):
+        prefill = bool(eng.waiting)
+        sync()
+        t0 = time.perf_counter()
+        for f in eng.step(t):
+            out[f.req.rid] = f.tokens
+        sync()
+        if prefill:
+            t_pre += time.perf_counter() - t0
+        else:
+            t_dec += time.perf_counter() - t0
+        t += 0.01
+        if eng.done():
+            break
+    return out, t_pre, t_dec
+
+
+def coupled_phase(cfg, params, disagg, device, kernels, card):
+    """Phase 3o: the coupled vLLM-style baseline (``CoupledEngine``) on
+    OPT-13B whole with phase 3f's weights and requests: whole-prompt
+    prefill through kernel 5 (40 layers x 8 prompts, all on the
+    tensor-core body), dense decode, 8 slots of 2,048.  Prints tokens/s,
+    the dense decode attention's share of the decode seconds, and how
+    many streams equal phase 3f's disaggregated ones (``disagg``; the
+    coupled engine stops on decode_len and emits one token more)."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.runtime.baseline_vllm import CoupledEngine
+    kw = dict(max_slots=SERVE["max_slots"], max_seq=SERVE["max_seq"],
+              n_pages=SERVE["n_pages"], page_size=SERVE["page_size"],
+              device=device)
+    run_coupled(CoupledEngine(cfg, params, **dict(kw, max_slots=1)),
+                make_requests(cfg.vocab_size, n=1, lo=64, hi=64,
+                              new=2))                      # warm-up
+    reqs = make_requests(cfg.vocab_size, lo=OPT_PROMPTS[0],
+                         hi=OPT_PROMPTS[1])
+    eng = CoupledEngine(cfg, params, **kw)
+    cache_gb = sum(t.numel() * t.element_size() for layer in eng.cache
+                   for t in layer.values()) / 1e9
+    zero_launches(kernels)
+    with EventTimer(A, "decode_attn_batched") as attn:
+        out, t_pre, t_dec = run_coupled(eng, reqs, torch.cuda.synchronize)
+        attn_ms = attn.ms()
+    launches = read_launches(kernels)
+    name = "chunked_prefill_attention"
+    check_bodies("3o", launches, cfg.dtype)
+    check(len(out) == len(reqs) and launches[name]
+          == cfg.n_layers * len(reqs) and sum(launches[k] for k in kernels)
+          == launches[name], f"phase 3o: {len(out)} finished, launches "
+          f"{launches}")
+    same = sum(out[rid][:len(toks)] == toks for rid, toks in disagg.items())
+    n_prompt = sum(r.prompt_len for r in reqs)
+    n_decoded = sum(len(t) - 1 for t in out.values())
+    print(f"phase 3o: CoupledEngine, {cfg.name} whole, dense slot cache "
+          f"{cache_gb:.1f} GB: {eng.iterations} iterations "
+          f"({eng.prefill_iterations} prefill), kernel 5 launched "
+          f"{launches[name]} = {cfg.n_layers} layers x {len(reqs)} whole "
+          f"prompts, {launches[name + ' (tensor cores)']} on the "
+          f"tensor-core body")
+    print(f"phase 3o: prefill {n_prompt} tokens in {t_pre:.3f} s = "
+          f"{n_prompt / t_pre:.1f} tokens/s; decode {n_decoded} tokens in "
+          f"{t_dec:.3f} s = {n_decoded / t_dec:.1f} tokens/s, dense decode "
+          f"attention {attn_ms:.1f} ms = {100 * attn_ms / 1e3 / t_dec:.1f}% "
+          f"of it ({card})")
+    print(f"phase 3o: {same} of {len(disagg)} streams equal phase 3f's "
+          "disaggregated ones (bf16: near-tied top logits may part them)")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def coupled_vs_cluster(cfg, params, device):
+    """Phase 4g (i) on one device: the N_REQUESTS requests (no sampling
+    params: both stop on decode_len) through the port's ``Cluster``
+    (2 + 2 instances) and through its ``CoupledEngine``; returns both
+    token dicts."""
+    from repro_torch.runtime.baseline_vllm import CoupledEngine
+    from repro_torch.serving import Cluster
+    outs = []
+    for coupled in (False, True):
+        reqs = make_requests(cfg.vocab_size)
+        for r in reqs:
+            r.sampling = None
+        if coupled:
+            outs.append(run_coupled(CoupledEngine(
+                cfg, params, max_slots=SERVE["max_slots"],
+                max_seq=SERVE["max_seq"], n_pages=SERVE["n_pages"],
+                page_size=SERVE["page_size"], device=device), reqs)[0])
+            continue
+        cl = Cluster(cfg, runtime="engine", params=params, device=device,
+                     chunk_size=SERVE["chunk_size"],
+                     page_size=SERVE["page_size"], max_seq=SERVE["max_seq"],
+                     n_pages=SERVE["n_pages"], max_batch=SERVE["max_slots"],
+                     **CLUSTER)
+        handles = [cl.submit(request=r) for r in reqs]
+        cl.run()
+        outs.append({h.rid: h.result().tokens for h in handles})
+    return outs
+
+
+def dense_vs_cpu(cfg2, gpu_params, cpu_params, device):
+    """Phase 4g: (i) qwen2 at 2 layers, f32: Cluster and CoupledEngine
+    token-identical on the card and on the CPU; (ii) RecurrentGemma at
+    one pattern period, full width, window 64 in 64-token chunks, and
+    (iii) xLSTM at its smoke depth and full width through ``Cluster``:
+    card and CPU token-identical, first-chunk logits within LOGIT_TOL;
+    and through ``AsyncCluster`` on the card (2 + 2 instances on 4
+    streams: the dense payloads cross streams), token-identical to the
+    CPU's ``Cluster``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.config import MLSTM, SLSTM
+    from repro_torch.serving import AsyncCluster, Cluster
+    t0 = time.perf_counter()
+    (cl_gpu, co_gpu), (cl_cpu, co_cpu) = (
+        coupled_vs_cluster(cfg2, params, dev)
+        for dev, params in ((device, gpu_params), ("cpu", cpu_params)))
+    check(len(cl_gpu) == N_REQUESTS and cl_gpu == co_gpu == cl_cpu
+          == co_cpu, "phase 4g (i): Cluster and CoupledEngine streams "
+          "differ between them or between the card and the CPU")
+    print(f"phase 4g (i): {cfg2.name} 2-layer f32: Cluster 2+2 and "
+          f"CoupledEngine give the same {len(cl_gpu)} token streams, on "
+          f"the card and on the CPU, {time.perf_counter() - t0:.1f} s")
+    c = dict(RG_CHECK)
+    rg = dataclasses.replace(get_config(RG_ARCH), n_layers=3, suffix=(),
+                             dtype="float32", local_window=c.pop("window"))
+    vs_cpu(f"RecurrentGemma, one pattern period, window "
+           f"{rg.local_window}, chunks of {c['chunk_size']}", rg,
+           device, lambda: make_requests(rg.vocab_size, n=c["n"],
+                                         lo=c["lo"], hi=c["hi"],
+                                         new=c["new"]),
+           SEED + 21, phase="4g (ii)", chunk_size=c["chunk_size"])
+    x = dataclasses.replace(get_config(XLSTM_ARCH), n_layers=2,
+                            pattern=(MLSTM, SLSTM), dtype="float32")
+    t0 = time.perf_counter()
+    gpu_x = M.init_params(x, torch.Generator(device=device)
+                          .manual_seed(SEED + 22), device)
+    runs = []
+    for dev, params in ((device, gpu_x), ("cpu", to_device(gpu_x, "cpu"))):
+        reqs = make_requests(x.vocab_size, **XLSTM_CHECK)
+        for r in reqs:
+            r.sampling = None
+        cl = Cluster(x, runtime="engine", params=params, device=dev,
+                     chunk_size=XLSTM_CHECK_CHUNK, max_seq=256,
+                     max_batch=4, n_prefill=1, n_decode=1)
+        with FirstLogits() as first:
+            handles = [cl.submit(request=r) for r in reqs]
+            cl.run()
+        runs.append(({h.rid: h.result().tokens for h in handles},
+                     first.logits))
+    (out_gpu, lg_gpu), (out_cpu, lg_cpu) = runs
+    lerr = float((lg_gpu - lg_cpu).abs().max())
+    check(len(out_gpu) == XLSTM_CHECK["n"] and out_gpu == out_cpu,
+          "phase 4g (iii): xLSTM card and CPU streams differ")
+    check(lerr <= LOGIT_TOL, f"phase 4g (iii): first-chunk logits differ "
+          f"by {lerr}")
+    reqs = make_requests(x.vocab_size, **XLSTM_CHECK)
+    for r in reqs:
+        r.sampling = None
+    ac = AsyncCluster(x, params=gpu_x, device=device, n_prefill=2,
+                      n_decode=2, chunk_size=XLSTM_CHECK_CHUNK, max_seq=256,
+                      max_batch=4)
+    try:
+        handles = [ac.submit(request=r) for r in reqs]
+        check(ac.drain(timeout=DRAIN_S), "phase 4g (iii): drain timed out")
+        check(ac.worker_errors == [], "phase 4g (iii): worker errors:\n"
+              + "\n".join(ac.worker_errors))
+        out_async = {h.rid: h.result(wait=False).tokens for h in handles}
+    finally:
+        ac.close()
+    check(out_async == out_cpu, "phase 4g (iii): xLSTM through "
+          "AsyncCluster on the card differs from Cluster on the CPU")
+    print(f"phase 4g (iii): xLSTM, {x.n_layers} layers (mLSTM, sLSTM) at "
+          f"full width, f32, Cluster 1+1 and AsyncCluster 2+2 on the card "
+          f"vs Cluster on the CPU: {len(out_gpu)} token streams identical, "
+          f"first-chunk logits max abs err {lerr:.3e} (tolerance "
+          f"{LOGIT_TOL:g}), {time.perf_counter() - t0:.1f} s")
+    del gpu_x
     torch.cuda.empty_cache()
 
 
@@ -2338,12 +2869,17 @@ def main() -> int:
             errs[key] = max(errs[key], err)
     # 2d: the dense chunked prefill through its entry, qwen2's and
     # Llama-3.2-Vision's widths
-    dense_launches, errs["chunked_prefill_attention"] = check_dense_kernel(
+    _, errs["chunked_prefill_attention"] = check_dense_kernel(
         [cfg, vlm_cfg], device, kernels)
     # 2e: kernels 1 and 2 at the served shapes of the slice-8 configs
     slice8_errs, slice8_geo = check_slice8_kernels(device)
     for name, err in slice8_errs.items():
         errs[name] = max(errs[name], err)
+    # 2f: kernel 5 at the dense backend's served shapes (RecurrentGemma's
+    # hd 256 / rep 16 windowed chunks, the coupled OPT-13B's prompts)
+    errs["chunked_prefill_attention"] = max(
+        errs["chunked_prefill_attention"],
+        check_dense_served(device, kernels))
 
     # -- phase 3: serve full-width qwen2-0.5b in bf16 --------------------
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -2404,10 +2940,18 @@ def main() -> int:
 
     # -- phases 3f-3h: the full-attention configs, bf16 -------------------
     opt_run, nemo_run, *more_runs = slice8_configs()
-    full_attention_phase("3f", opt_run, device, kernels, card)
+    # -- phase 3o: CoupledEngine on 3f's weights, once 3f's pools are freed
+    coupled_launches = {}
+    full_attention_phase(
+        "3f", opt_run, device, kernels, card,
+        then=lambda p, out: coupled_launches.update(coupled_phase(
+            opt_run["cfg"], p, out, device, kernels, card)))
     windowed_phase(nemo_run, device, kernels, card)
     for run in more_runs:
         full_attention_phase("3h", run, device, kernels, card)
+    # -- phases 3m, 3n: RecurrentGemma-9B and xLSTM-1.3B whole, dense ----
+    rg_launches = rg_phase(device, kernels, card)
+    xlstm_phase(device, kernels, card)
 
     # -- phase 4: device vs CPU, 2 layers, f32 ---------------------------
     # (phases 4-4f run kernels 1, 5 and 3 in f32 only: their counters,
@@ -2455,6 +2999,8 @@ def main() -> int:
           f"{N_REQUESTS // 2} sampled requests: card and CPU streams "
           f"identical, sampled lanes included, "
           f"{time.perf_counter() - t0:.1f} s")
+    # -- phase 4g: the dense backend and CoupledEngine, card vs CPU -------
+    dense_vs_cpu(cfg2, gpu_params, cpu_params, device)
     del gpu_params, cpu_params
 
     # -- phase 4b: DeepSeek-V2 device vs CPU, 2 layers, f32 --------------
@@ -2574,8 +3120,9 @@ def main() -> int:
         lambda a: prefill_work(a[0], a[1], *a[3:], causal=False),
         dtype, card, paged_prefill_attention)
     del vlm_pools, wh_pools
-    timing["chunked_prefill_attention"] = time_kernel(
-        "chunked_prefill_attention", [dense_args(cfg, dtype, device, gen)],
+    time_kernel(
+        "chunked_prefill_attention, phase 2d", [dense_args(cfg, dtype,
+                                                           device, gen)],
         chunked_prefill_attention, ref.chunked_prefill_attention,
         sdpa_dense_call, lambda a: dense_work(*a), dtype, card,
         chunked_prefill_attention)
@@ -2584,6 +3131,36 @@ def main() -> int:
                 chunked_prefill_attention, ref.chunked_prefill_attention,
                 sdpa_dense_call, lambda a: dense_work(*a), dtype, card,
                 chunked_prefill_attention)
+    # kernel 5 on its served paths: RecurrentGemma's chunks of 512 at
+    # RG_CHUNKS (window 2,048; the library call on the in-window keys)
+    # and the coupled OPT-13B's whole prompts of phase 3o
+    rg_cfg, opt_cfg = get_config(RG_ARCH), get_config(OPT_ARCH)
+    w, sq, skv = (rg_cfg.local_window, RG_SERVE["chunk_size"],
+                  RG_SERVE["max_seq"])
+    timing["chunked_prefill_attention"] = time_kernel(
+        f"chunked_prefill_attention, {rg_cfg.name} served chunks (3m)",
+        [dense_served_case(rg_cfg, 1, sq, q0, skv, [q0 + sq], dtype,
+                           device, gen) for q0 in RG_CHUNKS],
+        lambda *a: chunked_prefill_attention(*a, window=w),
+        lambda *a: ref.chunked_prefill_attention(*a, window=w),
+        lambda *a: sdpa_dense_call(*a, window=w),
+        lambda a: dense_work(*a, window=w), dtype, card,
+        chunked_prefill_attention)
+    print(f"phase 5: chunked_prefill_attention, {rg_cfg.name} served chunks "
+          f"(3m): {rg_launches['chunked_prefill_attention']} launches in "
+          "phase 3m's served run")
+    time_kernel(
+        f"chunked_prefill_attention, {opt_cfg.name} whole prompts (3o)",
+        [dense_served_case(opt_cfg, 1, r.prompt_len, 0, SERVE["max_seq"],
+                           [r.prompt_len], dtype, device, gen)
+         for r in make_requests(opt_cfg.vocab_size, lo=OPT_PROMPTS[0],
+                                hi=OPT_PROMPTS[1])],
+        chunked_prefill_attention, ref.chunked_prefill_attention,
+        sdpa_dense_call, lambda a: dense_work(*a), dtype, card,
+        chunked_prefill_attention)
+    print(f"phase 5: chunked_prefill_attention, {opt_cfg.name} whole "
+          f"prompts (3o): {coupled_launches['chunked_prefill_attention']} "
+          "launches in phase 3o's served run")
     # kernels 1 and 2 at OPT-13B's served shapes (rep 1) and windowed
     # Mistral-Nemo's (rep 4, the window's trimmed tables; its library
     # calls read the pre-gathered in-window K/V)
@@ -2621,7 +3198,9 @@ def main() -> int:
         "paged_mla_decode_attention"]
     launches["paged_cross_decode_attention"] = vlm_launches[
         "paged_cross_decode_attention"]
-    launches["chunked_prefill_attention"] = dense_launches[
+    # kernel 5's main path: RecurrentGemma's served run (3m), the path
+    # its row's times were taken at (3o's launches print beside its row)
+    launches["chunked_prefill_attention"] = rg_launches[
         "chunked_prefill_attention"]
     rows = []
     for name in build.NAMES:

@@ -5,11 +5,11 @@
 CPU tests.  Only the architectures whose paths are ported are listed:
 the full-attention GQA models (qwen2-0.5b, Phi-4-mini, Mistral-Nemo,
 DeepSeek-67B, OPT-13B, and Granite-MoE with its routed experts),
-DeepSeek-V2 (MLA latent pages and routed MoE), and Llama-3.2-Vision-11B
-and Whisper-tiny (read-only cross-attention pages).  The others come
-with their slices: recurrentgemma-9b and xlstm-1.3b with the dense and
-recurrent backends (ROADMAP A.11), opt-125m-cls with the classifier
-(A.13).
+DeepSeek-V2 (MLA latent pages and routed MoE), Llama-3.2-Vision-11B
+and Whisper-tiny (read-only cross-attention pages), and the two dense
+rows, RecurrentGemma-9B (RG-LRU + local attention) and xLSTM-1.3B
+(sLSTM / mLSTM), which serve on the dense backend.  opt-125m-cls comes
+with the classifier (ROADMAP A.13).
 """
 from __future__ import annotations
 
@@ -19,11 +19,11 @@ from repro_torch.models.config import ModelConfig, reduced
 
 ARCH_IDS = ("qwen2_0_5b", "llama_3_2_vision_11b", "phi4_mini_3_8b",
             "whisper_tiny", "deepseek_v2_236b", "mistral_nemo_12b",
-            "deepseek_67b", "granite_moe_3b_a800m", "opt_13b")
+            "deepseek_67b", "granite_moe_3b_a800m", "opt_13b",
+            "recurrentgemma_9b", "xlstm_1_3b")
 # the reference's other architectures, and the ROADMAP item that ports
 # each one's path
-PENDING = {"recurrentgemma_9b": "A.11", "xlstm_1_3b": "A.11",
-           "opt_125m_cls": "A.13"}
+PENDING = {"opt_125m_cls": "A.13"}
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 

@@ -1,24 +1,33 @@
 """Execution-backend selection for the port's engines.
 
 Both engines resolve their backend through ``backend_for``, as in the
-reference.  This slice ports the ``paged`` backend with two layouts:
-``gqa`` (pool pages hold per-head K/V, 2 * n_kv_heads * head_dim
-scalars per token per layer) and ``latent`` for MLA (the compressed
-latent plus the decoupled RoPE key, kv_lora_rank + qk_rope_head_dim
-scalars per token per layer: 576 for DeepSeek-V2).  VLM and
-encoder-decoder archs get ``cross="pages"``: the encoder K/V of every
-cross layer lives in read-only pages of the same GQA pool, addressed
-by a second per-request block table, prefilled once and freed with the
-request.  A sliding-window config pages too: ``window`` carries its
-window to the engines' allocators, which free the pages that slide
-wholly out of it.  A config or request that needs the dense backend
-(recurrent/hybrid archs) raises ``NotImplementedError`` naming the
-slice that brings it; nothing falls back quietly.
+reference.  Layouts:
+
+  * ``gqa``    — paged; pool pages hold per-head K/V, 2 * n_kv_heads *
+                 head_dim scalars per token per layer.
+  * ``latent`` — paged, for MLA: the compressed latent plus the
+                 decoupled RoPE key, kv_lora_rank + qk_rope_head_dim
+                 scalars per token per layer (576 for DeepSeek-V2).
+  * ``dense``  — per-request dense caches (``model.init_cache``): the
+                 backend of the recurrent and hybrid archs, and of the
+                 coupled vLLM-style baseline's model calls.
+
+VLM and encoder-decoder archs get ``cross="pages"`` on the paged
+backend: the encoder K/V of every cross layer lives in read-only pages
+of the same GQA pool, addressed by a second per-request block table,
+prefilled once and freed with the request.  A sliding-window config
+pages too: ``window`` carries its window to the engines' allocators,
+which free the pages that slide wholly out of it.  ``auto`` picks paged
+wherever the config supports it and dense elsewhere.  The dense forms
+of MLA and of cross-attention (the reference's ``cross="dense"``) are
+not ported yet: asking for them raises ``NotImplementedError`` naming
+ROADMAP A.11b; nothing falls back quietly.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
@@ -26,8 +35,8 @@ from repro_torch.models.config import ModelConfig
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
     """Resolved execution backend for one model config."""
-    backend: str            # "paged"
-    layout: str             # "gqa" | "latent"
+    backend: str            # "paged" | "dense"
+    layout: str             # "gqa" | "latent" | "dense"
     window: int             # sliding window in tokens (0 = unlimited)
     token_width: int        # pool scalars per token per layer
     page_token_bytes: int   # wire/pool bytes per token per layer
@@ -41,20 +50,25 @@ class BackendSpec:
 
 
 def backend_for(cfg: ModelConfig, requested: str = "auto") -> BackendSpec:
-    """Resolve the execution backend for ``cfg`` (paged, GQA or MLA
-    latent layout, full or sliding-window, cross pages for
-    cross-attention archs)."""
+    """Resolve the execution backend for ``cfg``: ``auto`` picks paged
+    whenever the config supports it, dense otherwise; asking for paged
+    on an unsupported arch is a loud error."""
     if requested not in ("auto", "paged", "dense"):
         raise ValueError(f"unknown backend {requested!r}")
-    if requested == "dense":
-        raise NotImplementedError(
-            "dense backend: comes with the dense and recurrent backends "
-            "slice")
-    if not M.paged_supported(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {sorted(set(cfg.layer_kinds))} need "
-            "the dense backend, which comes with its slice")
+    supported = M.paged_supported(cfg)
+    if requested == "paged" and not supported:
+        raise ValueError(f"{cfg.name}: paged backend unsupported")
+    backend = ("paged" if requested in ("auto", "paged") and supported
+               else "dense")
     dtype_bytes = 2 if cfg.dtype == "bfloat16" else 4
+    if backend == "dense":
+        if cfg.mla is not None:
+            raise B.not_dense("MLA")
+        if cfg.n_cross_layers:
+            raise B.not_dense("cross-attention (cross=\"dense\")")
+        return BackendSpec(backend="dense", layout="dense",
+                           window=cfg.sliding_window, token_width=0,
+                           page_token_bytes=0)
     if cfg.mla is not None:
         layout = "latent"
         width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim

@@ -1,10 +1,20 @@
 """Decode instance (paper §3.4): receiver -> working-set-aware local
-scheduler -> continuous-batching decode engine, on the paged backend.
+scheduler -> continuous-batching decode engine.
 
 Slot-based continuous batching: a fixed-capacity slot batch with a
 validity mask; the admission policy (greedy / reserve-static /
 reserve-dynamic) decides which queued requests join each iteration
-against the paged-KV allocator.  K/V lives in a shared device
+against the paged-KV allocator (on the dense backend too, where it only
+keeps the accounts).
+
+Dense backend (the recurrent and hybrid archs): a (max_slots, max_seq)
+dense cache; admission copies the payload's batch=1 cache into the
+slot (``model.cache_insert``) and every iteration runs
+``model.decode_step_greedy`` over the whole slot batch.  That step is
+greedy for every request, sampled ones included, as the reference's
+dense decode is (ROADMAP §C).
+
+Paged backend: K/V lives in a shared device
 ``PagePool``; admission INSTALLS the received page contents (in place)
 and a block-table row, every iteration runs the full slot batch through
 the CUDA paged-decode kernel (the paged MLA decode kernel over latent
@@ -36,8 +46,8 @@ On the card every call runs on the calling thread's current stream.
 Admission makes that stream wait on each payload's ``ready`` event (the
 prefill side's stream may be another) and marks the payload's tensors
 used by it, so the caching allocator does not hand their memory back
-to the prefill stream while this one still reads them.  The dense
-backend raises ``NotImplementedError``.
+to the prefill stream while this one still reads them: the pages on
+the paged backend, every leaf of the dense cache on the dense one.
 """
 from __future__ import annotations
 
@@ -90,8 +100,9 @@ class DecodeEngine:
         self.spec = backend_for(cfg, backend)
         self.backend = self.spec.backend
         self.enc_ctx = self.spec.cross_ctx
-        # same gating as the prefill side: stable page content
-        self.prefix_cache = prefix_cache and not cfg.sliding_window
+        # same gating as the prefill side: stable page content, paged
+        self.prefix_cache = (prefix_cache and self.backend == "paged"
+                             and not cfg.sliding_window)
         self.alloc = PagedAllocator(n_pages=n_pages, page_size=page_size,
                                     window=cfg.sliding_window,
                                     cross_tokens=self.enc_ctx,
@@ -105,6 +116,10 @@ class DecodeEngine:
         # (rid, token) pairs emitted by the LAST step() — the streaming
         # feed a serving layer forwards to request handles
         self.stream_events: List[Tuple[str, int]] = []
+        if self.backend == "dense":
+            self.cache = M.init_cache(cfg, max_slots, max_seq,
+                                      device=self.device)
+            return
         # the allocator's block tables ARE the physical mapping
         self.pool, self._trash = make_page_pool(cfg, n_pages, page_size,
                                                 self.device)
@@ -144,6 +159,15 @@ class DecodeEngine:
                 raise RuntimeError("scheduler admitted past slot capacity")
             pk = self._pending.pop(req.rid)
             self._await_payload(pk)
+            self.slots[slot] = SlotState(req=req,
+                                         last_token=pk.first_token,
+                                         tokens=[pk.first_token])
+            req.phase = Phase.DECODE
+            if req.t_decode_start < 0:
+                req.t_decode_start = now
+            if self.backend == "dense":
+                M.cache_insert(self.cache, pk.cache, slot)
+                continue
             # stage the received pages for the pages the scheduler's
             # admission just allocated; the block-table row is the
             # allocator's table
@@ -176,12 +200,6 @@ class DecodeEngine:
                     payload_k.append(pk.cross_k)
                     payload_v.append(pk.cross_v)
                     self.alloc.commit_cross(req.rid)
-            self.slots[slot] = SlotState(req=req,
-                                         last_token=pk.first_token,
-                                         tokens=[pk.first_token])
-            req.phase = Phase.DECODE
-            if req.t_decode_start < 0:
-                req.t_decode_start = now
         if pages:
             # one in-place scatter for the whole admitted batch
             self.pool.install(pages, torch.cat(payload_k, dim=1),
@@ -209,7 +227,8 @@ class DecodeEngine:
             return
         stream = torch.cuda.current_stream(self.device)
         stream.wait_event(pk.ready)
-        for t in (pk.pages_k, pk.pages_v, pk.cross_k, pk.cross_v):
+        leaves = [t for layer in pk.cache or () for t in layer.values()]
+        for t in (pk.pages_k, pk.pages_v, pk.cross_k, pk.cross_v, *leaves):
             if t is not None:
                 t.record_stream(stream)
 
@@ -219,7 +238,8 @@ class DecodeEngine:
         if not self.slots:         # cancel can drain the batch with a
             return []              # decode_done event still in flight
         self.iterations += 1
-        nxt = self._iteration_paged()
+        nxt = (self._iteration_dense() if self.backend == "dense"
+               else self._iteration_paged())
         finished: List[FinishedRequest] = []
         for s in list(self.slots):
             st = self.slots[s]
@@ -317,6 +337,20 @@ class DecodeEngine:
             to_device(pos, dev), to_device(pages, dev),
             to_device(offs, dev), to_device(bt, dev), to_device(lens, dev),
             self.pool.k, self.pool.v, **extra)
+        return nxt.cpu().numpy()
+
+    def _iteration_dense(self) -> np.ndarray:
+        """Full-slot-batch greedy decode against the dense cache; empty
+        slots decode a dummy token at position 0 of their own rows."""
+        toks = np.zeros((self.max_slots, 1), np.int32)
+        pos = np.zeros((self.max_slots,), np.int32)
+        for s, st in self.slots.items():
+            toks[s, 0] = st.last_token
+            pos[s] = st.req.prompt_len + st.req.generated
+            self.scheduler.step_token(st.req.rid)
+        nxt, self.cache = M.decode_step_greedy(
+            self.params, self.cfg, to_device(toks, self.device), self.cache,
+            to_device(pos, self.device))
         return nxt.cpu().numpy()
 
     # ------------------------------------------------------------------

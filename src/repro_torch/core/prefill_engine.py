@@ -1,17 +1,29 @@
 """Prefill instance (paper §3.3): local scheduler -> chunked-prefill LLM
-engine -> dispatcher, on the paged backend.
+engine -> dispatcher.
 
-The engine owns a device ``PagePool``; one ``step`` executes the WHOLE
-fixed-size chunk as a single fused ``model.prefill_paged`` call
-(segments of multiple requests packed on the batch dim), writing K/V
-straight into pages.  Finished requests ship ``(live page contents)``
-through ``PrefilledKV`` and free their pages.  Cross-attention archs
-(VLM / enc-dec) also hold READ-ONLY cross pages per request: the encoder
-K/V is scattered once, by the chunk holding the request's first
-segment; every chunk attends it through a second block table, and the
-finished request ships the cross pages beside the self KV.  With a
-sliding window, the pages the processed prefix slid past are freed
-after every chunk, so a finished request ships only its in-window pages.
+Execution backends (``core.backend.backend_for``):
+
+  * ``paged`` (every uniform-attention arch) — see below.
+  * ``dense`` (the recurrent and hybrid archs) — each request gets a
+    batch=1 dense cache of ``max_seq`` positions at refill, and every
+    segment of a chunk runs its own ``model.prefill`` call against it
+    (local attention through kernel 5, the recurrent states carried
+    between chunks).  The finished request ships the cache itself
+    (``PrefilledKV.cache``); the prefix cache is a no-op there, as in
+    the reference.
+
+On the paged backend the engine owns a device ``PagePool``; one ``step``
+executes the WHOLE fixed-size chunk as a single fused
+``model.prefill_paged`` call (segments of multiple requests packed on
+the batch dim), writing K/V straight into pages. Finished requests ship
+``(live page contents)`` through ``PrefilledKV`` and free their pages.
+Cross-attention archs (VLM / enc-dec) also hold READ-ONLY cross pages
+per request: the encoder K/V is scattered once, by the chunk holding the
+request's first segment; every chunk attends it through a second block
+table, and the finished request ships the cross pages beside the self
+KV. With a sliding window, the pages the processed prefix slid past are
+freed after every chunk, so a finished request ships only its in-window
+pages.
 
 With ``prefix_cache=True`` (unwindowed configs; a no-op with a sliding
 window, as in the reference) each request's full prompt pages are keyed
@@ -28,7 +40,8 @@ built with numpy, first tokens copied to the host.  The model runs on
 live there.  On the card every step runs on the calling thread's
 current stream; a finished request's payload carries an event recorded
 on it after the gather, which the decode side waits on before it reads
-the payload.  The dense backend comes with its slice.
+the payload: on the dense backend, after the request's last chunk has
+written its cache.
 """
 from __future__ import annotations
 
@@ -59,7 +72,9 @@ class PrefilledKV:
     page, kvh, hd) K/V pages or, for MLA, of (L, n_pages, page, lora)
     latent and (L, n_pages, page, rope) RoPE-key pages, plus ``kv_len``
     valid tokens.  The receiver installs them into its own pool and
-    builds a block-table row.  Cross-attention archs also ship
+    builds a block-table row.  On the dense backend ``cache`` is the
+    request's batch=1 dense cache (``model.init_cache``: a dict a
+    layer) and no pages travel.  Cross-attention archs also ship
     ``cross_k``/``cross_v``, copies of the read-only encoder pages (L,
     cross_pages, page, kvh, hd), covering ``enc_len`` encoder tokens:
     a one-shot payload, amortized over the whole decode.  On the card
@@ -70,7 +85,8 @@ class PrefilledKV:
     first_token: int             # argmax token from prefill (the 'first token')
     transfer_delay_s: float      # emulated network wait
     n_chunks: int = 1
-    pages_k: object = None
+    cache: object = None         # dense backend only
+    pages_k: object = None       # paged backend only
     pages_v: object = None
     kv_len: int = 0
     cross_k: object = None       # cross-attention archs only
@@ -146,9 +162,13 @@ class PrefillEngine:
         self.encoder_calls = 0       # chunks that ran encoder + scatter
         self.enc_ctx = self.spec.cross_ctx
         # the prefix cache needs stable page content (no sliding-window
-        # trims); a no-op with a window
-        self.prefix_cache = prefix_cache and not cfg.sliding_window
+        # trims) and the paged pool; a no-op elsewhere
+        self.prefix_cache = (prefix_cache and self.backend == "paged"
+                             and not cfg.sliding_window)
         self._page_keys: Dict[str, List[bytes]] = {}
+        if self.backend == "dense":
+            self._caches: Dict[str, object] = {}
+            return
         self.alloc = PagedAllocator(n_pages=n_pages, page_size=page_size,
                                     window=cfg.sliding_window,
                                     cross_tokens=self.enc_ctx,
@@ -190,7 +210,9 @@ class PrefillEngine:
         self.scheduler.remove(rid)
         self._chunk_queue = collections.deque(
             chunking.drop_rid(self._chunk_queue, rid))
-        if self.alloc.has(rid):
+        if self.backend == "dense":
+            self._caches.pop(rid, None)
+        elif self.alloc.has(rid):
             self.alloc.free(rid)
         self._page_keys.pop(rid, None)
         return True
@@ -200,10 +222,31 @@ class PrefillEngine:
         batch = self.scheduler.next_batch(self.scheduler.sched_batch)
         if not batch:
             return
-        # reserve each request's prompt pages up front — prefill writes
-        # every prompt position, so ALL pages materialize; requests that
-        # don't fit the pool right now go back to the head of the queue —
-        # backpressure instead of an OutOfPages crash mid-batch
+        if self.backend == "dense":
+            for r in batch:
+                self._caches[r.rid] = M.init_cache(
+                    self.cfg, 1, self.max_seq, device=self.device)
+            fit = batch
+        else:
+            fit = self._reserve_pages(batch)
+        if not fit:
+            return
+        pairs = [(r.rid, r.prompt_len) for r in fit]
+        # cached-prefix pages are skipped, not recomputed: each request's
+        # segments start at its first uncached token
+        starts = {r.rid: r.cached_prefix_tokens for r in fit
+                  if r.cached_prefix_tokens}
+        self._chunk_queue.extend(chunking.partition(
+            pairs, self.chunk_size, starts=starts or None))
+        for r in fit:
+            r.phase = Phase.PREFILL
+
+    def _reserve_pages(self, batch: List[Request]) -> List[Request]:
+        """Reserve each request's prompt pages up front — prefill writes
+        every prompt position, so ALL pages materialize; requests that
+        don't fit the pool right now go back to the head of the queue —
+        backpressure instead of an OutOfPages crash mid-batch.  Returns
+        the requests that fit."""
         fit, defer = [], []
         for r in batch:
             keys = cross_key = None
@@ -233,17 +276,7 @@ class PrefillEngine:
                 defer.append(r)
         if defer:
             self.scheduler.requeue_front(defer)
-        if not fit:
-            return
-        pairs = [(r.rid, r.prompt_len) for r in fit]
-        # cached-prefix pages are skipped, not recomputed: each request's
-        # segments start at its first uncached token
-        starts = {r.rid: r.cached_prefix_tokens for r in fit
-                  if r.cached_prefix_tokens}
-        self._chunk_queue.extend(chunking.partition(
-            pairs, self.chunk_size, starts=starts or None))
-        for r in fit:
-            r.phase = Phase.PREFILL
+        return fit
 
     def step(self, now: float) -> List[PrefilledKV]:
         """Run ONE fixed-size chunk (the paper's prefill iteration unit).
@@ -254,6 +287,8 @@ class PrefillEngine:
             return []
         chunk = self._chunk_queue.popleft()
         self.chunk_steps += 1
+        if self.backend == "dense":
+            return self._step_dense(chunk, now)
         return self._step_paged(chunk, now)
 
     # -- paged backend -------------------------------------------------
@@ -398,6 +433,46 @@ class PrefillEngine:
                            cross_v=cross_v, enc_len=enc_len,
                            cached_tokens=req.cached_prefix_tokens,
                            cross_cached=cross_cached, ready=ready)
+
+    # -- dense backend -------------------------------------------------
+    def _step_dense(self, chunk: chunking.Chunk, now: float
+                    ) -> List[PrefilledKV]:
+        """One ``model.prefill`` call a segment, each against its
+        request's dense cache at the segment's start."""
+        finished: List[PrefilledKV] = []
+        for seg in chunk.segments:
+            req = self._reqs[seg.rid]
+            if req.t_prefill_start < 0:
+                req.t_prefill_start = now
+            toks = np.zeros((1, seg.length), np.int32)
+            if req.prompt_tokens is not None:
+                toks[0] = req.prompt_tokens[
+                    seg.req_start: seg.req_start + seg.length]
+            logits, self._caches[seg.rid] = M.prefill(
+                self.params, self.cfg, to_device(toks, self.device),
+                self._caches[seg.rid], q_offset=seg.req_start)
+            req.prefilled = seg.req_start + seg.length
+            if req.prefilled >= req.prompt_len:
+                finished.append(self._finish_dense(req, logits, now))
+        return finished
+
+    def _finish_dense(self, req: Request, logits, now: float
+                      ) -> PrefilledKV:
+        n_chunks = self._note_finished(req, now)
+        delay = self.network.send_kv(self.cfg, req.prompt_len,
+                                     n_chunks=n_chunks)
+        req.phase = Phase.TRANSFER
+        # the host copy of the argmax waits for the request's last chunk
+        first_tok = int(torch.argmax(logits[0, -1]))
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        cache = self._caches.pop(req.rid)
+        self._reqs.pop(req.rid)
+        return PrefilledKV(req=req, cache=cache, first_token=first_tok,
+                           transfer_delay_s=delay, n_chunks=n_chunks,
+                           kv_len=req.prompt_len, ready=ready)
 
     def _note_finished(self, req: Request, now: float) -> int:
         req.t_first_token = now     # chunked prefill emits the first token

@@ -11,7 +11,8 @@ The kernel (``csrc/chunked_prefill_attention.cu``) runs one block per
 K/V tile the block reads, and the tiles walk only the live keys.  On an
 H100 the work is bound by its operations.  bf16 inputs run the
 tensor-core body it shares with the paged kernel (bf16 ``wgmma``,
-f32 sums; head widths 32, 64 and 128, any other raises ``ValueError``);
+f32 sums; head widths 32, 64 and 128, or 256 for both K and V, any
+other raises ``ValueError``);
 f32 inputs run the CUDA-core body, since the tensor cores would take
 them as TF32 (about three decimal digits) and the f32 runs are held
 token-identical to the CPU.  ``prefill_plan.prefill_plan`` picks the
@@ -34,8 +35,8 @@ from array import array
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.prefill_plan import (TENSOR_CORE, TILE_TOKENS,
-                                              prefill_plan, sm_count)
+from repro_torch.kernels.prefill_plan import (TENSOR_CORE, prefill_plan,
+                                              sm_count)
 
 NAME = "chunked_prefill_attention"
 _FLOATS = ("torch.float32", "torch.bfloat16")
@@ -102,8 +103,8 @@ def chunked_prefill_attention(q, k_cache, v_cache, kv_len, q_offset: int,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         kv_len.data_ptr(), out.data_ptr(),
         0 if part is None else part.data_ptr(), b, q_offset, sq, skv, h,
-        kvh, hd, hd_v, plan.block_q, TILE_TOKENS, plan.splits, int(window),
-        int(bool(causal)), int(plan.body == TENSOR_CORE)))
+        kvh, hd, hd_v, plan.block_q, plan.tile_pages, plan.splits,
+        int(window), int(bool(causal)), int(plan.body == TENSOR_CORE)))
     err = _launcher()(args.buffer_info()[0], hd ** -0.5,
                       build.raw_stream(dev))
     build.raise_on_error(NAME, err)

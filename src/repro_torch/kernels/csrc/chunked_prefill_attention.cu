@@ -31,7 +31,8 @@
 // therefore run the tensor-core body of the paged kernel
 // (prefill_attention_tc.cuh: bf16 wgmma with f32 sums, a cp.async K/V
 // ring, the softmax in registers, 128-row blocks where the grid still
-// fills the card, split keys where it does not); f32 inputs keep the
+// fills the card, split keys where it does not; 64-row blocks at
+// RecurrentGemma's head width of 256); f32 inputs keep the
 // CUDA-core body
 // (paged_attention.cuh), since TF32 tensor cores keep about three
 // decimal digits.
@@ -64,7 +65,7 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int HD, int HD_V>
-__global__ void __launch_bounds__(prefill_tc::THREADS_MAX)
+__global__ void __launch_bounds__(prefill_tc::max_threads<HD, HD_V>())
     chunked_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k_cache,
                               const __nv_bfloat16* __restrict__ v_cache,
@@ -124,7 +125,8 @@ int launch_tc(const void* q, const void* k_cache, const void* v_cache,
   if (err != cudaSuccess) return (int)err;
   // consumer warpgroups of 64 rows, then the copy warp
   const int warps = 4 * ((block_q * (h / kvh) + 63) / 64);
-  if (warps > prefill_tc::MAX_WARPS) return (int)cudaErrorInvalidValue;
+  if (32 * (warps + 1) > prefill_tc::max_threads<HD, HD_V>())
+    return (int)cudaErrorInvalidValue;
   const size_t smem = prefill_tc::Layout<HD, HD_V>::smem_bytes(warps);
   const dim3 grid(b, kvh, (sq + block_q - 1) / block_q * splits);
   float* p = splits > 1 ? static_cast<float*>(part) : nullptr;
@@ -147,8 +149,8 @@ int launch_tc(const void* q, const void* k_cache, const void* v_cache,
 // q, k_cache, v_cache, kv_len, out, part (0: none), b, q_offset, sq, skv,
 // h, kvh, hd, hd_v, block_q, tile_tok, splits, window, causal, dtype.
 // dtype: 0 = float32 (the CUDA-core body, tile_tok keys a tile), 1 =
-// bfloat16 (the tensor-core body, hd and hd_v each 32, 64 or 128;
-// tile_tok unused; with splits > 1 each block walks one of `splits`
+// bfloat16 (the tensor-core body, hd and hd_v each 32, 64 or 128, or
+// both 256; tile_tok unused; with splits > 1 each block walks one of `splits`
 // shares of its keys and part, splits * b * sq * h * (hd_v + 2) floats,
 // takes the partial states a second launch combines).  q, caches and
 // out share the dtype.  Returns the cudaError_t of the launch (0 on

@@ -57,7 +57,7 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int HD, int HD_V>
-__global__ void __launch_bounds__(prefill_tc::THREADS_MAX)
+__global__ void __launch_bounds__(prefill_tc::max_threads<HD, HD_V>())
     prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k_pool,
                       const __nv_bfloat16* __restrict__ v_pool,
@@ -122,7 +122,8 @@ int launch_tc(const void* q, const void* k_pool, const void* v_pool,
   if (err != cudaSuccess) return (int)err;
   // consumer warpgroups of 64 rows, then the copy warp
   const int warps = 4 * ((block_q * (h / kvh) + 63) / 64);
-  if (warps > prefill_tc::MAX_WARPS) return (int)cudaErrorInvalidValue;
+  if (32 * (warps + 1) > prefill_tc::max_threads<HD, HD_V>())
+    return (int)cudaErrorInvalidValue;
   const size_t smem = prefill_tc::Layout<HD, HD_V>::smem_bytes(warps);
   const dim3 grid(segs, kvh, (sq + block_q - 1) / block_q * splits);
   float* p = splits > 1 ? static_cast<float*>(part) : nullptr;
@@ -147,11 +148,11 @@ int launch_tc(const void* q, const void* k_pool, const void* v_pool,
 // segs, sq, h, kvh, hd, hd_v, page, n_slots, block_q, tile_pages, splits,
 // window, causal, dtype.  dtype: 0 = float32 (the CUDA-core body;
 // tile_pages pages a K/V tile), 1 = bfloat16 (the tensor-core body, hd
-// and hd_v each 32, 64 or 128; tile_pages unused; with splits > 1 each
-// block walks one of `splits` shares of its keys and part, splits * segs
-// * sq * h * (hd_v + 2) floats, takes the partial states a second launch
-// combines).  q, pools and out share the dtype.  Returns the cudaError_t
-// of the launch (0 on success).
+// and hd_v each 32, 64 or 128, or both 256; tile_pages unused; with
+// splits > 1 each block walks one of `splits` shares of its keys and
+// part, splits * segs * sq * h * (hd_v + 2) floats, takes the partial
+// states a second launch combines).  q, pools and out share the dtype.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int paged_prefill_attention_launch(const long long* args,
                                               float scale, void* stream) {
   const void* q = reinterpret_cast<const void*>(args[0]);

@@ -13,7 +13,7 @@
 //              (row = qi * rep + r, as in attend) in one or two
 //              warpgroups of 64 rows; the Q rows stay in shared memory
 //              and each warp reads its 16 rows' fragments for every tile
-//              (ldmatrix)
+//              (ldmatrix), a group of up to 8 k-steps at a time
 //   K/V ring   the keys [p_lo * page, min(kv_len, p_hi * page)) in tiles
 //              of 64, STAGES tiles in shared memory, filled by one copy
 //              warp through 16-byte cp.async.cg copies, each key's
@@ -48,6 +48,16 @@
 // zeroes that garbage exactly, and a row whose max stays NEG_INF writes
 // 0, as in attend.
 //
+// Head width 256 (hd = hd_v = 256, RecurrentGemma's local attention):
+// a consumer thread's f32 output tile of its 16 rows is 128 registers
+// before the scores, so such a block keeps one warpgroup of 64 rows (160
+// threads, launch-bounded to the 255 registers a thread may hold); its
+// Q K^T reads Q fragments 4 k-steps at a time (16 registers, not 64),
+// and its PV runs as two m64n128k16 halves of the V width.  The tiles
+// keep the 128-byte swizzle: a 256-wide row is four 64-value chunk rows,
+// as a 128-wide one is two.  Shared memory: the Q rows (64 x 264 bf16,
+// 33 KB) and two stages of 64 keys x (256 + 256) bf16 (128 KB).
+//
 // Numerics: products are exact in the f32 accumulators and only the
 // summation order differs from attend; P is rounded to bf16 before PV
 // (at most 2^-9 of each weight).
@@ -70,10 +80,19 @@ constexpr int TILE = 64;        // keys a K/V tile
 constexpr int QPAD = 8;         // bf16 of padding a shared-memory Q row
 constexpr int MAX_WARPS = 8;    // two consumer warpgroups: 128 query rows
 constexpr int THREADS_MAX = 32 * (MAX_WARPS + 1);   // and the copy warp
+
+// The most threads a block of widths (HD, HD_V) may have: one consumer
+// warpgroup and the copy warp at hd_v 256 (see the note above), else
+// THREADS_MAX.  The kernels' launch bounds.
+template <int HD, int HD_V>
+constexpr int max_threads() {
+  return HD_V > 128 ? 32 * (4 + 1) : THREADS_MAX;
+}
 constexpr float LOG2E = 1.4426950408889634f;
 
 // A K or V tile of TILE keys of width W in the swizzled layout wgmma
-// reads: W splits in chunks of CW = min(W, 64) values; chunk kc of key t
+// reads: W splits in chunks of CW = min(W, 64) values (four at W = 256);
+// chunk kc of key t
 // is the RB = 2 * CW byte row kc * TILE + t, and its 16-byte pieces are
 // XOR-permuted within each 8-row group (the 128-byte swizzle; 64-byte
 // for W = 32), which also keeps the copies free of bank conflicts.
@@ -359,6 +378,7 @@ __device__ __forceinline__ void attend(
   static_assert(HD % 16 == 0 && HD_V % 16 == 0, "widths of 16");
   constexpr int STAGES = L::STAGES;
   constexpr int KT = HD / 16;     // k16 steps of Q K^T
+  constexpr int KG = KT > 8 ? 4 : KT;   // k-steps a group of Q fragments
   constexpr int NS = TILE / 8;    // n8 score tiles a key tile
   extern __shared__ __align__(16) unsigned char smem_tc[];
   const int warps = (blockDim.x >> 5) - 1;          // consumer warps
@@ -466,26 +486,30 @@ __device__ __forceinline__ void attend(
     // lie.  Every warpgroup runs every tile: a branch around a wgmma
     // would serialise them all, and a tile wholly masked for a
     // warpgroup leaves its rows' state as it was.
-    uint32_t qf[KT][4];
-    uint64_t dk[KT];
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      ldmatrix_x4(qf[kk], q_s + ((warp * 16 + (lane & 7) +
-                                  ((lane >> 3) & 1) * 8) * L::QS +
-                                 kk * 16 + (lane >> 4) * 8) * 2);
-      dk[kk] = descriptor(ks + (kk * 16 / SK::CW) * TILE * SK::RB +
-                              (kk * 16 % SK::CW) * 2,
-                          16, 8 * SK::RB, SK::MODE);
-    }
     float s[NS * 4];
 #pragma unroll
     for (int j = 0; j < NS * 4; ++j) s[j] = 0.f;
-    fence_regs(s);
-    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk) wgmma<64, 0>(s, qf[kk], dk[kk]);
-    wgmma_commit_wait();
-    fence_regs(s);
+    for (int k0g = 0; k0g < KT; k0g += KG) {
+      uint32_t qf[KG][4];
+      uint64_t dk[KG];
+#pragma unroll
+      for (int j = 0; j < KG; ++j) {
+        const int kk = k0g + j;
+        ldmatrix_x4(qf[j], q_s + ((warp * 16 + (lane & 7) +
+                                   ((lane >> 3) & 1) * 8) * L::QS +
+                                  kk * 16 + (lane >> 4) * 8) * 2);
+        dk[j] = descriptor(ks + (kk * 16 / SK::CW) * TILE * SK::RB +
+                               (kk * 16 % SK::CW) * 2,
+                           16, 8 * SK::RB, SK::MODE);
+      }
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < KG; ++j) wgmma<64, 0>(s, qf[j], dk[j]);
+      wgmma_commit_wait();
+      fence_regs(s);
+    }
 
     // scale to log2 units; mask only where the tile crosses a mask edge
     const bool masked = k0 + TILE > k_end ||
@@ -555,8 +579,22 @@ __device__ __forceinline__ void attend(
                           SV::MODE);
     fence_regs(o);
     wgmma_fence();
+    if constexpr (HD_V == 256) {
+      // two m64n128 halves: columns 128..255 are V's chunk rows 2 and 3
+      float(&o_lo)[64] = *reinterpret_cast<float(*)[64]>(o);
+      float(&o_hi)[64] = *reinterpret_cast<float(*)[64]>(o + 64);
 #pragma unroll
-    for (int kk = 0; kk < NS / 2; ++kk) wgmma<HD_V, 1>(o, pa[kk], dv[kk]);
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        wgmma_n128<1>(o_lo, pa[kk], dv[kk], 1);
+        wgmma_n128<1>(o_hi, pa[kk],
+                      descriptor(vs + 2 * TILE * SV::RB + kk * 16 * SV::RB,
+                                 TILE * SV::RB, 8 * SV::RB, SV::MODE),
+                      1);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) wgmma<HD_V, 1>(o, pa[kk], dv[kk]);
+    }
     wgmma_commit_wait();
     fence_regs(o);
     // this warp is done with the stage
@@ -637,8 +675,8 @@ inline int combine(const float* part, bf16* out, long long n_rows, int hd_v,
 }
 
 // Call f(std::integral_constant<int, HD>, std::integral_constant<int,
-// HD_V>) for an instantiated pair of head widths (32, 64 or 128 each);
-// cudaErrorInvalidValue for any other.
+// HD_V>) for an instantiated pair of head widths (32, 64 or 128 each, or
+// 256 with 256); cudaErrorInvalidValue for any other.
 template <int HD, typename F>
 inline int with_hd_v(int hd_v, F&& f) {
   using HDc = std::integral_constant<int, HD>;
@@ -655,6 +693,10 @@ inline int with_widths(int hd, int hd_v, F&& f) {
     case 32: return with_hd_v<32>(hd_v, f);
     case 64: return with_hd_v<64>(hd_v, f);
     case 128: return with_hd_v<128>(hd_v, f);
+    case 256:
+      if (hd_v == 256)
+        return f(std::integral_constant<int, 256>{},
+                 std::integral_constant<int, 256>{});
   }
   return (int)cudaErrorInvalidValue;
 }

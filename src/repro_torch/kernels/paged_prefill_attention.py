@@ -11,7 +11,8 @@ The kernel (``csrc/paged_prefill_attention.cu``) runs one block per
 (segment, KV head, q tile); the rep query heads of a KV head share
 each K/V page the block reads.  On an H100 the work is bound by its
 operations.  bf16 inputs run the tensor-core body (bf16 ``wgmma``,
-f32 sums; head widths 32, 64 and 128, any other raises ``ValueError``);
+f32 sums; head widths 32, 64 and 128, or 256 for both K and V, any
+other raises ``ValueError``);
 f32 inputs run the CUDA-core body, since the tensor cores would take
 them as TF32 (about three decimal digits) and the f32 served runs are
 held token-identical to the CPU.  ``prefill_plan.prefill_plan`` picks

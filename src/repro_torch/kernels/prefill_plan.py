@@ -8,14 +8,18 @@ it without a card:
 
 - bf16 inputs run the tensor-core body (``csrc/prefill_attention_tc.cuh``:
   bf16 ``wgmma`` with f32 sums, a ``cp.async`` K/V ring).  It is
-  instantiated for head widths hd and hd_v of 32, 64 and 128; any other
-  width raises ``ValueError`` naming it, with no fallback.
+  instantiated for head widths hd and hd_v of 32, 64 and 128, and for
+  hd = hd_v = 256 (RecurrentGemma's local attention); any other width
+  raises ``ValueError`` naming it, with no fallback.
 - f32 inputs keep the CUDA-core body (``csrc/paged_attention.cuh``):
   the tensor cores would take f32 as TF32, about three decimal digits,
-  and the f32 served runs are held token-identical to the CPU.
+  and the f32 served runs are held token-identical to the CPU.  Its K/V
+  tile is 64 tokens, halved until the block's shared memory fits (32 at
+  hd 256 with 64 rows).
 
 The tensor-core body takes 128 query rows a block (two warpgroups of
-64) where the grid then still holds about one block per SM, else 64, so
+64) where the grid then still holds about one block per SM, else 64 (at
+hd_v 256 always 64: a thread's output tile alone is 128 registers), so
 a block's rows (positions x rep heads) share each K/V tile it reads:
 Llama-3.2-Vision's cross read (rep 4) gets 32 positions a block,
 a single-segment qwen2 chunk (rep 7, 2 KV heads) 9 (63 rows, 114
@@ -34,6 +38,7 @@ from repro_torch.kernels import build
 
 CUDA_CORE, TENSOR_CORE = "cuda_core", "tensor_core"
 TC_WIDTHS = (32, 64, 128)      # instantiated hd and hd_v of the bf16 body
+TC_WIDE = 256                  # also instantiated, as hd = hd_v = 256
 TILE_TOKENS = 64               # keys a K/V tile (both bodies)
 ROWS_SMALL, ROWS_BIG = 64, 128
 SPLIT_TILES = 4                # key tiles a split walks at the least
@@ -96,17 +101,24 @@ def prefill_plan(dtype, segs: int, sq: int, h: int, kvh: int, hd: int,
         rows = block_q * rep
         tile_pages = max(1, TILE_TOKENS // page)
         smem = build.attend_smem(rows, hd, hd_v, tile_pages, page)
+        while smem > build.MAX_SMEM and tile_pages > 1:
+            tile_pages //= 2
+            smem = build.attend_smem(rows, hd, hd_v, tile_pages, page)
         plan = Plan(CUDA_CORE, block_q, rows, 256, 1, tile_pages, smem)
     elif str(dtype) == "torch.bfloat16":
-        if hd not in TC_WIDTHS or hd_v not in TC_WIDTHS:
+        wide = hd == hd_v == TC_WIDE
+        if not wide and (hd not in TC_WIDTHS or hd_v not in TC_WIDTHS):
             raise ValueError(
                 f"prefill attention: no tensor-core body for bf16 head "
                 f"width hd={hd}, hd_v={hd_v} (instantiated: "
-                f"{', '.join(map(str, TC_WIDTHS))})")
-        if rep > ROWS_BIG:
+                f"{', '.join(map(str, TC_WIDTHS))} each, or both "
+                f"{TC_WIDE})")
+        most = ROWS_SMALL if wide else ROWS_BIG
+        if rep > most:
             raise ValueError(f"prefill attention: {rep} query heads a KV "
-                             f"head exceed a block of {ROWS_BIG} rows")
-        big, small = max(1, ROWS_BIG // rep), max(1, ROWS_SMALL // rep)
+                             f"head exceed a block of {most} rows")
+        big = max(1, most // rep)
+        small = max(1, ROWS_SMALL // rep)
         blocks = segs * kvh * -(-sq // big)
         block_q = big if 8 * blocks >= 7 * n_sms else small
         rows = block_q * rep

@@ -5,6 +5,8 @@ observability flags).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --real   # the card
   PYTHONPATH=src python -m repro_torch.launch.serve --real --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --real \
+      --arch recurrentgemma_9b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --real --wall-clock \
       --arrival-rate 20 --arrival-process poisson --requests 12
 
@@ -77,8 +79,9 @@ def _dump_obs(args, tracer, metrics):
 
 
 def _run_real(args):
-    """The port's engines on the small f32 qwen2 config, on
-    ``args.device``, with random weights from seed 0."""
+    """The port's engines on the small f32 config of ``args.arch``
+    (qwen2 unless asked; the recurrent archs run on the dense backend),
+    on ``args.device``, with random weights from seed 0."""
     import dataclasses
 
     import torch
@@ -88,7 +91,7 @@ def _run_real(args):
     from repro_torch.runtime.workload import generate
     from repro_torch.serving import Cluster
 
-    cfg = dataclasses.replace(get_smoke_config("qwen2_0_5b"),
+    cfg = dataclasses.replace(get_smoke_config(args.arch),
                               dtype="float32")
     print(f"model: {cfg.name}  layers={cfg.n_layers} d={cfg.d_model}")
     params = M.init_params(
@@ -119,7 +122,8 @@ def _run_real(args):
 def _run_wall_clock(args):
     """The wall-clock async runtime: concurrent instances and overlapped
     KV transfer, driven open-loop from an arrival process; the small f32
-    qwen2 config on ``args.device``, random weights from seed 0."""
+    config of ``args.arch`` on ``args.device``, random weights from seed
+    0."""
     import dataclasses
 
     import torch
@@ -130,7 +134,7 @@ def _run_wall_clock(args):
     from repro_torch.serving import (ArrivalSchedule, AsyncCluster,
                                      OpenLoopClient)
 
-    cfg = dataclasses.replace(get_smoke_config("qwen2_0_5b"),
+    cfg = dataclasses.replace(get_smoke_config(args.arch),
                               dtype="float32")
     print(f"model: {cfg.name}  layers={cfg.n_layers} d={cfg.d_model}")
     params = M.init_params(
@@ -181,6 +185,10 @@ def main(argv=None):
     ap.add_argument("--workload", default="Mixed",
                     choices=["LPLD", "LPHD", "HPLD", "HPHD", "Mixed"])
     ap.add_argument("--requests", type=int, default=128)
+    ap.add_argument("--arch", default="qwen2_0_5b",
+                    help="the model whose small f32 config --real and "
+                         "--wall-clock serve (e.g. recurrentgemma_9b, "
+                         "xlstm_1_3b on the dense backend)")
     ap.add_argument("--prefill-policy", default="sjf",
                     choices=["fcfs", "sjf", "ljf"])
     ap.add_argument("--decode-policy", default="reserve-dynamic",

@@ -1,7 +1,10 @@
-"""Attention on the paged serving path: RoPE, GQA and MLA (DeepSeek-V2
-multi-head latent attention) projections, the prefill/decode attention
-against one layer's page pool, and the cross-attention of VLM and
-encoder-decoder models against read-only cross pages of the same pool.
+"""Attention: RoPE, GQA and MLA (DeepSeek-V2 multi-head latent
+attention) projections, the prefill/decode attention against one
+layer's page pool, the cross-attention of VLM and encoder-decoder
+models against read-only cross pages of the same pool, and the dense
+backend's GQA prefill and decode against per-request caches (dense
+prefill through kernel 5, dense decode in torch ops, as the
+reference's plain jnp).
 
 GQA attends through the CUDA kernels in ``kernels/ops.py`` in both
 phases.  MLA attends in its absorbed form over a LATENT pool (the
@@ -72,6 +75,88 @@ def gqa_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# dense backend (per-request caches)
+# ---------------------------------------------------------------------------
+def gqa_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
+                q_offset: int = 0, window: int = 0):
+    """Dense prefill chunk: write the chunk's K/V into the (b, S, kvh,
+    hd) cache at [q_offset, q_offset + s) in place, then attend (written
+    prefix ++ this chunk) through ``ops.prefill_attention``'s dense form,
+    kernel 5, with kv_len = q_offset + s for every request.  The
+    reference computes the same function with its blocked ``flash_attn``
+    in jnp.  Returns (attention output (b, s, d), cache)."""
+    b, s, _ = x.shape
+    positions = q_offset + torch.arange(s, device=x.device)[None, :]
+    q, k, v = gqa_qkv(p, cfg, x, positions)
+    cache["k"][:, q_offset:q_offset + s] = k
+    cache["v"][:, q_offset:q_offset + s] = v
+    kv_len = torch.full((b,), q_offset + s, dtype=torch.int32,
+                        device=x.device)
+    out = ops.prefill_attention(q.contiguous(), cache["k"], cache["v"],
+                                kv_len, q_offset, window=window)
+    return out.reshape(b, s, -1) @ p["wo"], cache
+
+
+def decode_attn_batched(q, k_cache, v_cache, pos, window: int = 0,
+                        ring: bool = False) -> torch.Tensor:
+    """One-token attention over the whole dense cache, per-request
+    positions pos (b,).  q: (b, 1, h, hd); caches: (b, S, kvh, hd).
+    ``ring``: the cache is a ring buffer of the window, and every slot
+    below min(pos + 1, S) holds a live key.
+
+    Plain torch ops, not a kernel's plain version: the reference's
+    dense decode attention is plain jnp too, outside any Pallas kernel
+    (``blocks.py:_decode_attn_batched``)."""
+    b, s, kvh, hd = k_cache.shape
+    h = q.shape[2]
+    rep = h // kvh
+    qg = q.reshape(b, 1, kvh, rep, hd).float()
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg,
+                          k_cache.float()) * hd ** -0.5
+    idx = torch.arange(s, device=q.device)[None, :]
+    pb = pos.long()[:, None]
+    if ring:
+        valid = idx < torch.clamp(pb + 1, max=s)
+    else:
+        valid = idx <= pb
+        if window:
+            valid = valid & (idx > pb - window)
+    scores = scores.masked_fill(~valid[:, None, None, None, :], ref.NEG_INF)
+    pr = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", pr, v_cache.float())
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def decode_attn(q, k_cache, v_cache, pos: int, *, window: int = 0,
+                ring: bool = False) -> torch.Tensor:
+    """``decode_attn_batched`` at one position ``pos`` (an int) shared
+    by every request."""
+    b = q.shape[0]
+    return decode_attn_batched(
+        q, k_cache, v_cache,
+        torch.full((b,), pos, dtype=torch.long, device=q.device),
+        window, ring)
+
+
+def gqa_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+               pos: int, *, window: int = 0):
+    """One-token decode at a position ``pos`` (an int) shared by the
+    batch; the cache's seq dim may be a ring buffer of the window.
+    Writes the token's K/V in place.  Returns (out (b, 1, d), cache)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    q, k, v = gqa_qkv(p, cfg, x, positions)
+    s_cache = cache["k"].shape[1]
+    ring = window > 0 and s_cache <= window
+    slot = pos % s_cache if ring else pos
+    cache["k"][:, slot:slot + 1] = k
+    cache["v"][:, slot:slot + 1] = v
+    out = decode_attn(q, cache["k"], cache["v"], pos, window=window,
+                      ring=ring)
+    return out.reshape(b, 1, -1) @ p["wo"], cache
 
 
 def gqa_prefill_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,

@@ -1,10 +1,31 @@
-"""Block pieces shared by every block kind.  The port's paged path
-composes its one block kind (ATTN) in ``model._paged_attn_block``; the
-per-kind init/apply dispatch of the reference comes with the dense and
-recurrent backends slice."""
+"""Block composition: norm + temporal mixer + channel mixer per block
+kind, with the per-kind init and the dense backend's cache init and
+apply (reference ``src/repro/models/blocks.py``).
+
+The paged path composes its ATTN / CROSS_ATTN blocks in
+``model._paged_attn_block``; the dense backend runs ``apply_block`` in
+two modes:
+
+  * "prefill": a chunk of the sequence, reading and writing a cache
+  * "decode":  one token a request, per-request positions ``pos: (b,)``
+
+Dense caches are dicts of tensors, updated in place where the reference
+updates a K/V cache functionally (the chunk's or the token's K/V rows);
+a recurrent block's new state replaces its old tensors in the returned
+dict.  MLA and CROSS_ATTN blocks on the dense backend, and the "train"
+mode, are not ported yet (ROADMAP A.11b and A.13): they raise.
+"""
 from __future__ import annotations
 
+from typing import Any, Dict
+
 import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models import mlp as MLP
+from repro_torch.models import recurrent as R
+from repro_torch.models.config import (ATTN, CROSS_ATTN, LOCAL_ATTN, MLSTM,
+                                       RGLRU, SLSTM, ModelConfig)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
@@ -14,3 +35,233 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def not_dense(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} on the dense backend is not ported yet (ROADMAP A.11b)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+class Init:
+    """The reference's weight distributions (normal times a scale, ones
+    for norms, zeros for biases, a uniform for the RG-LRU's decay),
+    drawn from ``generator`` on ``device``: the same law, not the same
+    numbers."""
+
+    def __init__(self, generator: torch.Generator, device, dtype):
+        self.generator, self.device, self.dtype = generator, device, dtype
+
+    def normal(self, shape, scale, dt=None) -> torch.Tensor:
+        x = torch.randn(shape, generator=self.generator, device=self.device,
+                        dtype=torch.float32)
+        return x.mul_(scale).to(dt or self.dtype)   # in place: GBs
+
+    def uniform(self, shape, lo, hi) -> torch.Tensor:
+        """f32 whatever the model's dtype, as the reference's draw."""
+        x = torch.rand(shape, generator=self.generator, device=self.device,
+                       dtype=torch.float32)
+        return x.mul_(hi - lo).add_(lo)
+
+    def ones(self, n) -> torch.Tensor:
+        return torch.ones(n, dtype=self.dtype, device=self.device)
+
+    def zeros(self, n) -> torch.Tensor:
+        return torch.zeros(n, dtype=self.dtype, device=self.device)
+
+
+def init_gqa(ini: Init, cfg: ModelConfig) -> dict:
+    d, h, kvh, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+    attn = {"wq": ini.normal((d, h * hd), d ** -0.5),
+            "wk": ini.normal((d, kvh * hd), d ** -0.5),
+            "wv": ini.normal((d, kvh * hd), d ** -0.5),
+            "wo": ini.normal((h * hd, d), (h * hd) ** -0.5)}
+    if cfg.qkv_bias:
+        attn.update(bq=ini.zeros(h * hd), bk=ini.zeros(kvh * hd),
+                    bv=ini.zeros(kvh * hd))
+    return attn
+
+
+def init_cross(ini: Init, cfg: ModelConfig) -> dict:
+    """Cross-attention projections: GQA's, never biased."""
+    d, h, kvh, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+    return {"wq": ini.normal((d, h * hd), d ** -0.5),
+            "wk": ini.normal((d, kvh * hd), d ** -0.5),
+            "wv": ini.normal((d, kvh * hd), d ** -0.5),
+            "wo": ini.normal((h * hd, d), (h * hd) ** -0.5)}
+
+
+def init_mla(ini: Init, cfg: ModelConfig) -> dict:
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    attn = {}
+    if m.q_lora_rank:
+        attn["wq_a"] = ini.normal((d, m.q_lora_rank), d ** -0.5)
+        attn["q_norm"] = ini.ones(m.q_lora_rank)
+        attn["wq_b"] = ini.normal((m.q_lora_rank, h * qk),
+                                  m.q_lora_rank ** -0.5)
+    else:
+        attn["wq"] = ini.normal((d, h * qk), d ** -0.5)
+    attn["wkv_a"] = ini.normal((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                               d ** -0.5)
+    attn["kv_norm"] = ini.ones(m.kv_lora_rank)
+    attn["wkv_b"] = ini.normal(
+        (m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim)),
+        m.kv_lora_rank ** -0.5)
+    attn["wo"] = ini.normal((h * m.v_head_dim, d),
+                            (h * m.v_head_dim) ** -0.5)
+    return attn
+
+
+def init_mlp(ini: Init, cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    glu = 2 if cfg.mlp_act == "swiglu" else 1
+    return {"wi": ini.normal((d, glu * cfg.d_ff), d ** -0.5),
+            "wo": ini.normal((cfg.d_ff, d), cfg.d_ff ** -0.5)}
+
+
+def init_moe(ini: Init, cfg: ModelConfig) -> dict:
+    moe, d = cfg.moe, cfg.d_model
+    glu = 2 if cfg.mlp_act == "swiglu" else 1
+    ff, e = moe.expert_ff or cfg.d_ff, moe.n_experts
+    p = {"router": ini.normal((d, e), d ** -0.5, torch.float32),
+         "wi": ini.normal((e, d, glu * ff), d ** -0.5),
+         "wo": ini.normal((e, ff, d), ff ** -0.5)}
+    if moe.n_shared:
+        sff = ff * moe.n_shared
+        p["shared_wi"] = ini.normal((d, glu * sff), d ** -0.5)
+        p["shared_wo"] = ini.normal((sff, d), sff ** -0.5)
+    return p
+
+
+def init_block(ini: Init, kind: str, cfg: ModelConfig,
+               use_moe: bool) -> Dict[str, Any]:
+    """One layer's weights: {norm1, attn, norm2, mlp | moe[, norm_c,
+    cross]} for the attention kinds, {norm1, rglru, norm2, mlp} for
+    RG-LRU, {norm, cell} for sLSTM / mLSTM."""
+    d = cfg.d_model
+    if kind in (ATTN, LOCAL_ATTN, CROSS_ATTN):
+        p = {"norm1": ini.ones(d),
+             "attn": init_mla(ini, cfg) if cfg.mla else init_gqa(ini, cfg),
+             "norm2": ini.ones(d)}
+        if use_moe and cfg.moe is not None:
+            p["moe"] = init_moe(ini, cfg)
+        else:
+            p["mlp"] = init_mlp(ini, cfg)
+        if kind == CROSS_ATTN:
+            p["norm_c"] = ini.ones(d)
+            p["cross"] = init_cross(ini, cfg)
+        return p
+    if kind == RGLRU:
+        return {"norm1": ini.ones(d), "rglru": R.init_rglru(ini, cfg),
+                "norm2": ini.ones(d), "mlp": init_mlp(ini, cfg)}
+    if kind == SLSTM:
+        return {"norm": ini.ones(d), "cell": R.init_slstm(ini, cfg)}
+    if kind == MLSTM:
+        return {"norm": ini.ones(d), "cell": R.init_mlstm(ini, cfg)}
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# dense cache init (per block kind)
+# ---------------------------------------------------------------------------
+def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
+                     dtype, device, ring: bool = False) -> Dict[str, Any]:
+    """One layer's dense cache: K/V (batch, s, kvh, hd) for the
+    attention kinds, the recurrent state for the others.  ``ring=True``
+    gives windowed layers a ring buffer of ``window`` positions in place
+    of ``max_seq``: decode-only shapes; prefill needs the full length."""
+    if kind in (ATTN, LOCAL_ATTN):
+        if cfg.mla is not None:
+            raise not_dense("MLA")
+        window = cfg.local_window if kind == LOCAL_ATTN \
+            else cfg.sliding_window
+        s = min(max_seq, window) if (window and ring) else max_seq
+        shape = (batch, s, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == CROSS_ATTN:
+        raise not_dense("CROSS_ATTN")
+    if kind == RGLRU:
+        return R.rglru_init_state(cfg, batch, dtype, device)
+    if kind == SLSTM:
+        return R.slstm_init_state(cfg, batch, dtype, device)
+    if kind == MLSTM:
+        return R.mlstm_init_state(cfg, batch, dtype, device)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+def apply_block(kind: str, p: Dict[str, Any], cfg: ModelConfig,
+                x: torch.Tensor, *, mode: str, cache: Dict[str, Any],
+                pos=None, q_offset: int = 0):
+    """One block on the dense backend.  ``mode`` "prefill": x (b, s, d)
+    is the chunk at the shared absolute start ``q_offset`` (a host int);
+    "decode": x (b, 1, d) at per-request positions ``pos`` (b,).
+    Returns (x_out, new_cache)."""
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"mode {mode!r}: training comes with "
+                                  "its slice (ROADMAP A.13)")
+    if kind in (ATTN, LOCAL_ATTN):
+        if cfg.mla is not None:
+            raise not_dense("MLA")
+        window = cfg.local_window if kind == LOCAL_ATTN \
+            else cfg.sliding_window
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        if mode == "prefill":
+            a, new_cache = A.gqa_prefill(p["attn"], cfg, h, cache,
+                                         q_offset=q_offset, window=window)
+        else:
+            a, new_cache = _gqa_decode_batched(p["attn"], cfg, h, cache,
+                                               pos, window)
+        x = x + a
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        if "moe" in p:
+            return x + MLP.moe_forward(p["moe"], cfg, h2)[0], new_cache
+        return x + MLP.mlp_forward(p["mlp"], cfg, h2), new_cache
+    if kind == CROSS_ATTN:
+        raise not_dense("CROSS_ATTN")
+    if kind == RGLRU:
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        fn = R.rglru_forward if mode == "prefill" else R.rglru_decode
+        r, new_cache = fn(p["rglru"], cfg, h, cache)
+        x = x + r
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        return x + MLP.mlp_forward(p["mlp"], cfg, h2), new_cache
+    if kind in (SLSTM, MLSTM):
+        h = rms_norm(x, p["norm"], cfg.norm_eps)
+        if kind == SLSTM:
+            fn = R.slstm_forward if mode == "prefill" else R.slstm_decode
+        else:
+            fn = R.mlstm_forward if mode == "prefill" else R.mlstm_decode
+        r, new_cache = fn(p["cell"], cfg, h, cache)
+        return x + r, new_cache
+    raise ValueError(kind)
+
+
+# --- batched decode with per-request positions ------------------------------
+def _scatter_kv(cache: torch.Tensor, new: torch.Tensor, slots: torch.Tensor
+                ) -> None:
+    """Write one token a request at per-request slots, in place.
+    cache: (b, S, ...), new: (b, 1, ...), slots: (b,) int."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, slots.long()] = new[:, 0].to(cache.dtype)
+
+
+def _gqa_decode_batched(p, cfg, x, cache, pos, window):
+    b = x.shape[0]
+    q, k, v = A.gqa_qkv(p, cfg, x, pos[:, None])
+    s_cache = cache["k"].shape[1]
+    ring = window > 0 and s_cache <= window
+    slots = pos % s_cache if ring else torch.clamp(pos, max=s_cache - 1)
+    _scatter_kv(cache["k"], k, slots)
+    _scatter_kv(cache["v"], v, slots)
+    out = A.decode_attn_batched(q, cache["k"], cache["v"], pos, window,
+                                ring)
+    return out.reshape(b, 1, -1) @ p["wo"], cache

@@ -1,9 +1,10 @@
-"""Model assembly for the paged serving path.
+"""Model assembly for the paged serving path and the dense backend.
 
 Entry points (pure functions of (params, cfg, ...), except that the
-page pools are updated in place):
+page pools and the dense K/V caches are updated in place):
   * ``init_params``       — random init on a device, from a generator
-  * ``paged_supported``   — whether the port's paged path runs a config
+  * ``paged_supported``   — whether the paged path runs a config (the
+                            dense backend runs the others)
   * ``encoder_forward``   — the encoder-decoder models' bidirectional
                             encoder over stub-frontend embeddings
   * ``prefill_paged``     — one WHOLE fixed-size chunk as a single fused
@@ -14,19 +15,26 @@ page pools are updated in place):
                             token selection stays on the device
   * ``sample_tokens``     — greedy argmax or a temperature / top-k draw
                             per slot, stateless and graph-ready
+  * ``init_cache`` / ``cache_insert`` / ``cache_select`` — the dense
+                            backend's per-layer caches (K/V or state)
+  * ``prefill`` / ``prefill_chunked`` — dense chunked prefill, attention
+                            through kernel 5
+  * ``decode_step`` / ``decode_step_greedy`` — dense decode, one token a
+                            request at per-request positions
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
 optional ``lm_head``/``pos_embed``, and ``layers``, one dict per layer
-in execution order: {norm1, attn, norm2, mlp | moe[, norm_c, cross]}.
-``attn`` is GQA {wq, wk, wv, wo[, bq, bk, bv]} or MLA {wq | wq_a,
-q_norm, wq_b; wkv_a, kv_norm, wkv_b, wo}; ``mlp`` is {wi, wo}; ``moe``
-is {router (f32), wi (E, d, ·), wo (E, ff, d)[, shared_wi, shared_wo]};
-CROSS_ATTN layers add ``norm_c`` and ``cross`` {wq, wk, wv, wo}.  With
-MoE the prefix layers are dense and the others routed (DeepSeek-V2's
-first-k-dense).  Encoder-decoder configs add ``encoder`` {blocks: a
-list of GQA + dense-MLP layer dicts, norm}.  The reference's scanned
-``body`` stack is unrolled into that list by
-``repro_torch.params.from_reference``.
+in execution order (``blocks.init_block``): {norm1, attn, norm2, mlp |
+moe[, norm_c, cross]} for the attention kinds, {norm1, rglru, norm2,
+mlp} for RG-LRU and {norm, cell} for sLSTM / mLSTM.  ``attn`` is GQA
+{wq, wk, wv, wo[, bq, bk, bv]} or MLA {wq | wq_a, q_norm, wq_b; wkv_a,
+kv_norm, wkv_b, wo}; ``mlp`` is {wi, wo}; ``moe`` is {router (f32), wi
+(E, d, ·), wo (E, ff, d)[, shared_wi, shared_wo]}; CROSS_ATTN layers
+add ``norm_c`` and ``cross`` {wq, wk, wv, wo}.  With MoE the prefix
+layers are dense and the others routed (DeepSeek-V2's first-k-dense).
+Encoder-decoder configs add ``encoder`` {blocks: a list of GQA +
+dense-MLP layer dicts, norm}.  The reference's scanned ``body`` stack is
+unrolled into that list by ``repro_torch.params.from_reference``.
 
 The page pools are (L, n_pages, page, kvh, hd) K/V for GQA and (L,
 n_pages, page, lora) / (L, n_pages, page, rope) latent / RoPE-key pages
@@ -34,11 +42,14 @@ for MLA.  CROSS_ATTN layers read their encoder K/V from read-only
 cross pages of the same GQA pool, through a second block table.  A
 sliding window (``cfg.sliding_window``) reaches every self-attention
 kernel; the engines' allocators free the pages that slid out of it.
-The dense cache path and training come with their slices.
+
+The dense cache is a list with one dict a layer, in the order of
+``layers``: {k, v} (b, S, kvh, hd) for ATTN / LOCAL_ATTN, the recurrent
+state for the others.  Training comes with its slice (ROADMAP A.13).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 
@@ -61,112 +72,32 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> Dict[str, Any]:
     """Random weights with the distributions of the reference's
     ``init_params`` (normal times the same scales, ones for norms, zeros
-    for biases), drawn from ``generator`` — the same law, not the same
-    numbers.  The generator must live on ``device``."""
+    for biases, a uniform for the RG-LRU's decay), drawn from
+    ``generator`` — the same law, not the same numbers.  The generator
+    must live on ``device``."""
     cfg.validate()
-    if not paged_supported(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs full-attention ATTN and "
-            "CROSS_ATTN blocks only; other block kinds come with their "
-            "slices")
     dtype = torch_dtype(cfg)
+    ini = B.Init(generator, device, dtype)
     d = cfg.d_model
-
-    def normal(shape, scale, dt=dtype):
-        x = torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return x.mul_(scale).to(dt)     # in place: expert stacks are GBs
-
-    def ones(n):
-        return torch.ones(n, dtype=dtype, device=device)
-
-    def zeros(n):
-        return torch.zeros(n, dtype=dtype, device=device)
-
-    def gqa():
-        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        attn = {"wq": normal((d, h * hd), d ** -0.5),
-                "wk": normal((d, kvh * hd), d ** -0.5),
-                "wv": normal((d, kvh * hd), d ** -0.5),
-                "wo": normal((h * hd, d), (h * hd) ** -0.5)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(h * hd), bk=zeros(kvh * hd),
-                        bv=zeros(kvh * hd))
-        return attn
-
-    def mla():
-        m, h = cfg.mla, cfg.n_heads
-        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-        attn = {}
-        if m.q_lora_rank:
-            attn["wq_a"] = normal((d, m.q_lora_rank), d ** -0.5)
-            attn["q_norm"] = ones(m.q_lora_rank)
-            attn["wq_b"] = normal((m.q_lora_rank, h * qk),
-                                  m.q_lora_rank ** -0.5)
-        else:
-            attn["wq"] = normal((d, h * qk), d ** -0.5)
-        attn["wkv_a"] = normal((d, m.kv_lora_rank + m.qk_rope_head_dim),
-                               d ** -0.5)
-        attn["kv_norm"] = ones(m.kv_lora_rank)
-        attn["wkv_b"] = normal(
-            (m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim)),
-            m.kv_lora_rank ** -0.5)
-        attn["wo"] = normal((h * m.v_head_dim, d),
-                            (h * m.v_head_dim) ** -0.5)
-        return attn
-
-    glu = 2 if cfg.mlp_act == "swiglu" else 1
-
-    def dense():
-        return {"wi": normal((d, glu * cfg.d_ff), d ** -0.5),
-                "wo": normal((cfg.d_ff, d), cfg.d_ff ** -0.5)}
-
-    def cross():
-        h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        return {"wq": normal((d, h * hd), d ** -0.5),
-                "wk": normal((d, kvh * hd), d ** -0.5),
-                "wv": normal((d, kvh * hd), d ** -0.5),
-                "wo": normal((h * hd, d), (h * hd) ** -0.5)}
-
-    def routed():
-        moe = cfg.moe
-        ff, e = moe.expert_ff or cfg.d_ff, moe.n_experts
-        p = {"router": normal((d, e), d ** -0.5, torch.float32),
-             "wi": normal((e, d, glu * ff), d ** -0.5),
-             "wo": normal((e, ff, d), ff ** -0.5)}
-        if moe.n_shared:
-            sff = ff * moe.n_shared
-            p["shared_wi"] = normal((d, glu * sff), d ** -0.5)
-            p["shared_wo"] = normal((sff, d), sff ** -0.5)
-        return p
-
-    params: Dict[str, Any] = {"embed": normal((cfg.vocab_size, d), d ** -0.5),
-                              "final_norm": ones(d)}
+    params: Dict[str, Any] = {"embed": ini.normal((cfg.vocab_size, d),
+                                                  d ** -0.5),
+                              "final_norm": ini.ones(d)}
     if cfg.n_positions:
-        params["pos_embed"] = normal((cfg.n_positions, d), d ** -0.5)
+        params["pos_embed"] = ini.normal((cfg.n_positions, d), d ** -0.5)
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab_size), d ** -0.5)
-    layers = []
-    for i, kind in enumerate(cfg.layer_kinds):
-        layer = {"norm1": ones(d), "attn": mla() if cfg.mla else gqa(),
-                 "norm2": ones(d)}
-        # DeepSeek-V2's first-k-dense rule: prefix layers stay dense
-        if cfg.moe is not None and i >= len(cfg.prefix):
-            layer["moe"] = routed()
-        else:
-            layer["mlp"] = dense()
-        if kind == CROSS_ATTN:
-            layer["norm_c"] = ones(d)
-            layer["cross"] = cross()
-        layers.append(layer)
-    params["layers"] = layers
+        params["lm_head"] = ini.normal((d, cfg.vocab_size), d ** -0.5)
+    # DeepSeek-V2's first-k-dense rule: with MoE the prefix layers stay
+    # dense and the others are routed
+    params["layers"] = [
+        B.init_block(ini, kind, cfg,
+                     use_moe=cfg.moe is not None and i >= len(cfg.prefix))
+        for i, kind in enumerate(cfg.layer_kinds)]
     if cfg.is_encoder_decoder:
         # whisper's encoder: bidirectional GQA blocks with dense MLPs
         params["encoder"] = {
-            "blocks": [{"norm1": ones(d), "attn": gqa(), "norm2": ones(d),
-                        "mlp": dense()}
+            "blocks": [B.init_block(ini, ATTN, cfg, use_moe=False)
                        for _ in range(cfg.encoder.n_layers)],
-            "norm": ones(d)}
+            "norm": ini.ones(d)}
     return params
 
 
@@ -204,6 +135,99 @@ def encoder_forward(params, cfg: ModelConfig, enc_embeds):
         n2 = B.rms_norm(h, p["norm2"], cfg.norm_eps)
         h = h + MLP.mlp_forward(A.promoted(p["mlp"], n2.dtype), cfg, n2)
     return B.rms_norm(h, params["encoder"]["norm"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# dense backend: per-request caches (recurrent / hybrid archs, baseline)
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               ring: bool = False, device="cuda") -> List[Dict[str, Any]]:
+    """The dense cache: one dict a layer, in execution order (prefix +
+    body repeat-major + suffix, as ``params["layers"]``), each leaf with
+    the batch on dim 0, in the model's dtype."""
+    return [B.init_block_cache(kind, cfg, batch, max_seq, torch_dtype(cfg),
+                               device, ring=ring)
+            for kind in cfg.layer_kinds]
+
+
+def cache_insert(dst_cache, src_cache, slot: int):
+    """Copy a batch=1 cache into slot ``slot`` of a slot-batched cache
+    with the same structure and seq dims, in place (decode-engine
+    admission).  Returns ``dst_cache``."""
+    for dst, src in zip(dst_cache, src_cache):
+        for k, leaf in dst.items():
+            leaf[slot:slot + 1].copy_(src[k])
+    return dst_cache
+
+
+def cache_select(src_cache, slot: int):
+    """A copy of slot ``slot`` as a batch=1 cache."""
+    return [{k: leaf[slot:slot + 1].clone() for k, leaf in layer.items()}
+            for layer in src_cache]
+
+
+def _run_layers(params, cfg: ModelConfig, h, *, mode: str, caches,
+                pos=None, q_offset: int = 0):
+    new_caches = []
+    for kind, p, c in zip(cfg.layer_kinds, params["layers"], caches):
+        h, nc = B.apply_block(kind, p, cfg, h, mode=mode, cache=c, pos=pos,
+                              q_offset=q_offset)
+        new_caches.append(nc)
+    return h, new_caches
+
+
+def _no_encoder(enc_embeds) -> None:
+    if enc_embeds is not None:
+        raise B.not_dense("cross-attention")
+
+
+def prefill(params, cfg: ModelConfig, tokens, cache, *, q_offset: int = 0,
+            enc_embeds=None):
+    """One dense prefill chunk.  tokens: (b, chunk) at the shared
+    absolute start ``q_offset`` (a host int).  Returns (logits of the
+    last position (b, 1, V), cache)."""
+    _no_encoder(enc_embeds)
+    b, s = tokens.shape
+    positions = q_offset + torch.arange(s, device=tokens.device)[None, :]
+    h = _embed(params, cfg, tokens, positions.expand(b, s))
+    h, cache = _run_layers(params, cfg, h, mode="prefill", caches=cache,
+                           q_offset=q_offset)
+    return _head(params, cfg, h[:, -1:]), cache
+
+
+def prefill_chunked(params, cfg: ModelConfig, tokens, cache, *,
+                    chunk_size: int, enc_embeds=None):
+    """The paper's chunked prefill: fixed-size chunks in order.
+    tokens: (b, S) with S % chunk_size == 0 (padded by the caller).
+    Returns (logits of the last position (b, 1, V), cache)."""
+    _no_encoder(enc_embeds)
+    b, s = tokens.shape
+    if s % chunk_size:
+        raise ValueError("pad prompts to a multiple of ChunkSize")
+    for start in range(0, s, chunk_size):
+        chunk = tokens[:, start:start + chunk_size]
+        positions = start + torch.arange(chunk_size,
+                                         device=tokens.device)[None, :]
+        h = _embed(params, cfg, chunk, positions.expand(b, chunk_size))
+        h, cache = _run_layers(params, cfg, h, mode="prefill",
+                               caches=cache, q_offset=start)
+    return _head(params, cfg, h[:, -1:]), cache
+
+
+def decode_step(params, cfg: ModelConfig, tokens, cache, pos):
+    """tokens: (b, 1); pos: (b,) current positions.  Returns (logits
+    (b, 1, V), cache)."""
+    h = _embed(params, cfg, tokens, pos[:, None])
+    h, cache = _run_layers(params, cfg, h, mode="decode", caches=cache,
+                           pos=pos)
+    return _head(params, cfg, h), cache
+
+
+def decode_step_greedy(params, cfg: ModelConfig, tokens, cache, pos):
+    """``decode_step`` with the argmax on the device: returns
+    (next_tokens (b,) int32, cache)."""
+    logits, cache = decode_step(params, cfg, tokens, cache, pos)
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,10 @@ suffix, the order of the reference's absolute layer ids, each layer's
 dict whole (a CROSS_ATTN layer's ``norm_c`` and ``cross`` included).  An
 encoder-decoder's ``encoder`` {blocks, norm} comes across with its
 blocks as a list.  Leaves keep their dtype: the MoE router stays f32 in
-a bf16 model, as in the reference.
+a bf16 model, as in the reference, and so does the RG-LRU's
+``a_param``.  ``cache_from_reference`` brings a dense cache pytree
+across the same way, so caches and recurrent states compare leaf by
+leaf.
 """
 from __future__ import annotations
 
@@ -21,7 +24,6 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import paged_supported
 
 
 def to_tensor(a, device) -> torch.Tensor:
@@ -42,18 +44,9 @@ def _tree(x, device, index=None):
     return to_tensor(x if index is None else np.asarray(x)[index], device)
 
 
-def from_reference(tree: Dict[str, Any], cfg: ModelConfig,
-                   device="cuda") -> Dict[str, Any]:
-    """Port params (see ``repro_torch.models.model``) from the reference
-    pytree of numpy arrays, on ``device``, dtypes kept."""
-    if not paged_supported(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: only full-attention GQA, MLA and "
-            "cross-attention configs are ported so far")
-    out: Dict[str, Any] = {
-        k: to_tensor(tree[k], device)
-        for k in ("embed", "final_norm", "pos_embed", "lm_head")
-        if k in tree}
+def _layers(tree, cfg: ModelConfig, device) -> List[Dict[str, Any]]:
+    """The reference's prefix / stacked body / suffix as one list in
+    execution order."""
     layers: List[Dict[str, Any]] = [_tree(b, device)
                                     for b in tree["prefix"]]
     for r in range(cfg.n_repeats):
@@ -63,9 +56,29 @@ def from_reference(tree: Dict[str, Any], cfg: ModelConfig,
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: {len(layers)} layers in the tree, "
                          f"config has {cfg.n_layers}")
-    out["layers"] = layers
+    return layers
+
+
+def from_reference(tree: Dict[str, Any], cfg: ModelConfig,
+                   device="cuda") -> Dict[str, Any]:
+    """Port params (see ``repro_torch.models.model``) from the reference
+    pytree of numpy arrays, on ``device``, dtypes kept."""
+    out: Dict[str, Any] = {
+        k: to_tensor(tree[k], device)
+        for k in ("embed", "final_norm", "pos_embed", "lm_head")
+        if k in tree}
+    out["layers"] = _layers(tree, cfg, device)
     if "encoder" in tree:
         enc = tree["encoder"]
         out["encoder"] = {"blocks": [_tree(b, device) for b in enc["blocks"]],
                           "norm": to_tensor(enc["norm"], device)}
     return out
+
+
+def cache_from_reference(tree: Dict[str, Any], cfg: ModelConfig,
+                         device="cuda") -> List[Dict[str, Any]]:
+    """The port's dense cache (``repro_torch.models.model.init_cache``:
+    one dict a layer) from the reference's cache pytree of numpy arrays
+    (prefix / stacked body / suffix, as ``repro.models.model.init_cache``
+    builds it), on ``device``, dtypes kept."""
+    return _layers(tree, cfg, device)

@@ -614,6 +614,68 @@ def test_cuda_prefill_tensor_core_edges(dtype, segs, sq, h, kvh, hd, hd_v,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,q_off,kv_len,window,split", [
+    # RecurrentGemma's local attention (16 query heads over 1 KV head
+    # of 256): a chunk at 0, one past the window with a short request
+    # and an empty one, and ragged kv_len off the 64-key tile
+    (2, 64, 256, 0, [64, 10], 48, False),
+    (3, 64, 320, 200, [264, 0, 230], 48, False),
+    (2, 40, 200, 100, [140, 120], 0, False),
+    # its served chunks, one request a call in a cache of 4,096 with the
+    # 2,048-token window: a full 512-query chunk past the window and a
+    # short last one, whose bf16 plans split the keys and merge shares
+    (1, 512, 4096, 3584, [4096], 2048, True),
+    (1, 300, 4096, 2048, [2348], 2048, True),
+])
+def test_cuda_prefill_wide_heads(dtype, b, sq, skv, q_off, kv_len, window,
+                                 split):
+    """On the card: kernel 5 (dense caches) and kernel 1 (the same K/V
+    as one-token pages) at hd = hd_v = 256, rep 16, causal and windowed,
+    against their plain versions; bf16 on the tensor-core body's
+    one-warpgroup instantiation (its keys split in shares where
+    ``split``), f32 on the CUDA-core body's halved tiles; rows without
+    an attendable key exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.chunked_prefill_attention import (
+        chunked_prefill_attention)
+    from repro_torch.kernels.prefill_plan import prefill_plan, sm_count
+    dev = torch.device("cuda")
+    tdt = getattr(torch, dtype)
+    h, kvh, hd = 16, 1, 256
+    plan = prefill_plan(tdt, b, sq, h, kvh, hd, hd, 1, skv, sm_count(dev))
+    assert (plan.splits > 1) == (split and dtype == "bfloat16")
+    rng = np.random.default_rng(44)
+    q = torch.from_numpy(_rand(rng, (b, sq, h, hd))).to(dev).to(tdt)
+    k, v = (torch.from_numpy(_rand(rng, (b, skv, kvh, hd))).to(dev).to(tdt)
+            for _ in range(2))
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    before = (chunked_prefill_attention.launches,
+              chunked_prefill_attention.tensor_core_launches)
+    got = chunked_prefill_attention(q, k, v, lens, q_off, window=window)
+    exp = ref.chunked_prefill_attention(q, k, v, lens, q_off, window=window)
+    # kernel 1 on the same keys: request i's cache as pages i * skv ..
+    bt = torch.arange(b * skv, dtype=torch.int32, device=dev).reshape(b,
+                                                                      skv)
+    offs = torch.full((b,), q_off, dtype=torch.int32, device=dev)
+    got1 = paged_prefill_attention(q, k.reshape(b * skv, 1, kvh, hd),
+                                   v.reshape(b * skv, 1, kvh, hd), bt, lens,
+                                   offs, window=window)
+    torch.cuda.synchronize()
+    assert (chunked_prefill_attention.launches,
+            chunked_prefill_attention.tensor_core_launches) == (
+        before[0] + 1, before[1] + (dtype == "bfloat16"))
+    dead = ~torch.from_numpy(_attendable(kv_len, [q_off] * b, sq, window,
+                                         True)).to(dev)
+    for out in (got, got1):
+        assert out.dtype == tdt and out.shape == (b, sq, h, hd)
+        assert bool(torch.isfinite(out).all())
+        assert float((out.float() - exp.float()).abs().max()) <= _limit(exp)
+        assert float(out[dead].float().abs().sum()) == 0.0
+
+
+@pytest.mark.gpu
 def test_cuda_prefill_refuses_bf16_widths_without_a_body():
     """On the card: a bf16 call at a head width with no tensor-core
     instantiation raises, naming the width, and launches nothing; f32 at

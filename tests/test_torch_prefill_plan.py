@@ -11,9 +11,10 @@ from repro_torch.kernels.chunked_prefill_attention import (
     chunked_prefill_attention)
 from repro_torch.kernels.paged_prefill_attention import (
     paged_prefill_attention)
-from repro_torch.kernels.prefill_plan import (CUDA_CORE, TC_WIDTHS,
-                                              TENSOR_CORE, key_splits,
-                                              prefill_plan, tc_smem)
+from repro_torch.kernels.prefill_plan import (CUDA_CORE, TC_WIDE,
+                                              TC_WIDTHS, TENSOR_CORE,
+                                              key_splits, prefill_plan,
+                                              tc_smem)
 
 
 @pytest.mark.parametrize("dtype,body", [
@@ -103,7 +104,7 @@ def test_tensor_core_smem_fits_every_instantiation(hd, hd_v):
                 assert 2 * (plan.smem + 1024) <= 233_472
 
 
-@pytest.mark.parametrize("hd,hd_v", [(48, 48), (80, 80), (256, 256),
+@pytest.mark.parametrize("hd,hd_v", [(48, 48), (80, 80), (256, 128),
                                      (64, 96), (16, 64)])
 def test_bf16_without_an_instantiation_raises(hd, hd_v):
     bad = hd if hd not in TC_WIDTHS else hd_v
@@ -143,3 +144,70 @@ def test_cpu_tensors_count_no_launch():
             paged_prefill_attention.tensor_core_launches,
             chunked_prefill_attention.launches,
             chunked_prefill_attention.tensor_core_launches) == before
+
+
+# served shapes of kernel 5 on the dense backend, as SERVED: RecurrentGemma's
+# local attention (16 query heads over 1 KV head of 256) in 512-query
+# chunks of caches of 4,096, and the coupled OPT-13B's whole prompts
+# (40 / 40 heads of 128, up to 2,000 queries in caches of 2,048)
+SERVED_DENSE = [
+    # hd 256: 64-row blocks (4 positions x rep 16) of one warpgroup, two
+    # stages; 128 blocks leave SMs idle, so 3 key shares
+    ((1, 512, 16, 1, 256, 256, 1, 4096), (4, 64, 160, 2, 3)),
+    # two requests' chunks at once: 256 blocks, no split
+    ((2, 512, 16, 1, 256, 256, 1, 4096), (4, 64, 160, 2, 1)),
+    # OPT-13B, one whole prompt of 2,000 at rep 1: 640 blocks of 128
+    ((1, 2000, 40, 40, 128, 128, 1, 2048), (128, 128, 288, 2, 1)),
+    # and a short one of 64: 40 blocks of 64 rows, the cache's 32 tiles
+    # in 7 shares (those past the diagonal walk no key)
+    ((1, 64, 40, 40, 128, 128, 1, 2048), (64, 64, 160, 2, 7)),
+]
+
+
+@pytest.mark.parametrize("shape,expect", SERVED_DENSE)
+def test_rows_a_block_at_dense_served_shapes(shape, expect):
+    plan = prefill_plan(torch.bfloat16, *shape)
+    assert plan.body == TENSOR_CORE
+    assert (plan.block_q, plan.rows, plan.threads, plan.stages,
+            plan.splits) == expect
+    assert plan.smem == tc_smem(plan.threads // 32 - 1, shape[4], shape[5])
+    assert plan.smem <= build.MAX_SMEM
+
+
+@pytest.mark.parametrize("rep", [1, 4, 16, 64])
+@pytest.mark.parametrize("segs", [1, 64])
+def test_wide_instantiation_keeps_one_warpgroup(rep, segs):
+    """hd = hd_v = 256 blocks keep one consumer warpgroup of at most 64
+    rows (160 threads, so a thread may hold 255 registers) and two
+    stages: the Q rows (33 KB) and 2 x 64 keys x 512 bf16 (128 KB) in
+    165,920 bytes."""
+    plan = prefill_plan(torch.bfloat16, segs, 512, rep, 1, TC_WIDE,
+                        TC_WIDE, 1, 4096)
+    assert plan.body == TENSOR_CORE
+    assert plan.threads == 160 and plan.rows <= 64
+    assert plan.block_q == max(1, 64 // rep) and plan.stages == 2
+    assert plan.smem == tc_smem(4, 256, 256) == 165_920
+    assert plan.smem <= build.MAX_SMEM
+
+
+def test_wide_instantiation_refuses_more_than_64_rows_a_head():
+    with pytest.raises(ValueError, match="64 rows"):
+        prefill_plan(torch.bfloat16, 1, 64, 128, 1, 256, 256, 1, 64)
+
+
+@pytest.mark.parametrize("page,tile_pages", [(1, 32), (4, 8), (16, 2)])
+@pytest.mark.parametrize("rep", [1, 16])
+def test_f32_tile_halves_until_it_fits(page, tile_pages, rep):
+    """The CUDA-core body at hd 256: 64 rows and a 64-token tile need
+    280,320 bytes; the tile halves (32 tokens) until the block fits.
+    Widths that already fit keep their 64-token tile."""
+    plan = prefill_plan(torch.float32, 1, 512, rep, 1, 256, 256, page,
+                        4096)
+    assert plan.body == CUDA_CORE and plan.rows == 64
+    assert build.attend_smem(64, 256, 256, max(1, 64 // page),
+                             page) > build.MAX_SMEM
+    assert plan.tile_pages == tile_pages
+    assert plan.smem == build.attend_smem(64, 256, 256, tile_pages, page)
+    assert plan.smem <= build.MAX_SMEM
+    assert prefill_plan(torch.float32, 1, 512, rep, 1, 128, 128, page,
+                        4096).tile_pages == max(1, 64 // page)

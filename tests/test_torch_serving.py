@@ -159,11 +159,25 @@ def test_prefill_page_backpressure(setup):
 
 
 def test_dense_backend_and_prefix_cache_raise(setup):
-    """The dense backend raises (ROADMAP A.11); the decode engine with the
-    prefix cache builds, its allocator caching."""
+    """The dense backend builds for a GQA config (no pool, a slot cache
+    on the decode side) and takes no prefix cache, as in the reference;
+    dense MLA raises naming ROADMAP A.11b.  The paged decode engine with
+    the prefix cache builds, its allocator caching."""
     cfg, _, params = setup
-    with pytest.raises(NotImplementedError):
-        PrefillEngine("p", cfg, params, device="cpu", backend="dense")
+    pe = PrefillEngine("p", cfg, params, device="cpu", backend="dense",
+                       prefix_cache=True)
+    de = DecodeEngine("d", cfg, params, device="cpu", backend="dense",
+                      max_slots=2, max_seq=32, prefix_cache=True)
+    assert pe.backend == de.backend == "dense"
+    assert not pe.prefix_cache and not de.prefix_cache
+    assert not hasattr(pe, "pool") and not hasattr(de, "pool")
+    assert len(de.cache) == cfg.n_layers
+    assert de.cache[0]["k"].shape == (2, 32, cfg.n_kv_heads,
+                                      cfg.resolved_head_dim)
+    mla = dataclasses.replace(get_smoke_config("deepseek_v2_236b"),
+                              dtype="float32")
+    with pytest.raises(NotImplementedError, match="A.11b"):
+        PrefillEngine("p", mla, params, device="cpu", backend="dense")
     de = DecodeEngine("d", cfg, params, device="cpu", prefix_cache=True)
     assert de.prefix_cache and de.alloc.prefix_cache
 

@@ -1,11 +1,12 @@
-"""Sliding-window paging in the port against the JAX package's paged
-path, on the same weights (``from_reference``) and requests, in f32 on
-the CPU.  Ports the reference's window tests
-(tests/test_paged_path.py:219-313 and :402); the port has no dense
-backend, so each holds the port against the reference's paged engines
-and model, where the reference held its paged path against its dense
-one.  Logits agree within 1e-4 (summation order), pools within 1e-5,
-tokens, fused calls, iterations and wire bytes exactly.
+"""Sliding-window paging in the port against the JAX package's paged path,
+on the same weights (``from_reference``) and requests, in f32 on the
+CPU. Ports the reference's window tests
+(tests/test_paged_path.py:219-313 and :402); each holds the port against
+the reference's paged engines and model, where the reference held its
+paged path against its dense one (the port's dense backend is held in
+tests/test_torch_dense.py). Logits agree within 1e-4 (summation order),
+pools within 1e-5, tokens, fused calls, iterations and wire bytes
+exactly.
 """
 import copy
 import dataclasses
@@ -121,10 +122,12 @@ def test_backend_for_window_matrix():
         assert (s.backend, s.cross) == ("paged", "pages"), cross_arch
         assert s.cross_ctx > 0 and s.n_cross_layers > 0
     for dense_arch in ("recurrentgemma_9b", "xlstm_1_3b"):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            get_smoke_config(dense_arch)
-    with pytest.raises(NotImplementedError):
-        backend_for(win, "dense")
+        s = backend_for(get_smoke_config(dense_arch))
+        assert (s.backend, s.layout) == ("dense", "dense"), dense_arch
+    dense = backend_for(win, "dense")
+    assert (dense.backend, dense.window) == ("dense", WINDOW)
+    with pytest.raises(NotImplementedError, match="A.11b"):
+        backend_for(mla, "dense")
     cfg = dataclasses.replace(win, dtype="float32")
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     pe = PrefillEngine("p", cfg, params, device="cpu", **KW)
