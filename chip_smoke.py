@@ -40,8 +40,16 @@ Phases, in order (any failure exits non-zero):
    requests a call with ragged kv_len and a 0, and one a call as phase
    3m's engine gives them, whose bf16 plan splits the keys and merges
    the shares, which 2f asserts; and the coupled OPT-13B's whole prompts
-   (up to 1,711 queries at 0).  bf16 outputs are held to a limit scaled by the plain
-   output's magnitude (``limit``).
+   (up to 1,711 queries at 0).  2g: kernel 5 at the dense MLA prefill's
+   widths (DeepSeek-V2's 128 / 128 heads decompressed to K of 192 and V
+   of 128: chunks of 512 at 0, 512 and 1,536 in caches of 2,048, one
+   request a call and four with ragged kv_len and a 0; a 16-head slice
+   of the same widths, whose bf16 plan splits the keys) and at the dense
+   cross reads, non-causal (Llama-3.2-Vision's 32 / 8 heads of 128 over
+   1,600 patches and Whisper's 6 / 6 of 64 over 1,500 frames: a chunk of
+   512, the 8 decode slots, and a whole prompt of 2,000 over the 1,600
+   patches, sq > skv), f32 and bf16.  bf16 outputs are held to a limit
+   scaled by the plain output's magnitude (``limit``).
    The prefill kernels (1 and 5) and the MLA decode kernel (3) run bf16
    on their tensor-core body and f32 on their CUDA-core body: 2d, 3-3i
    and 4-4e check it on the wrappers' ``tensor_core_launches``.
@@ -81,8 +89,18 @@ Phases, in order (any failure exits non-zero):
    kernel, the time loops' shares.  3o: the coupled vLLM-style baseline
    (``CoupledEngine``) on OPT-13B whole with 3f's weights and requests:
    kernel 5 launched 40 layers x 8 whole prompts, the streams that equal
-   3f's.  Every kernel's launch counter is set to 0 just before each
-   run and read just after it.
+   3f's.  3p: DeepSeek-V2 at 4 layers on the dense backend with 3b's
+   weights and requests (kernel 5 at hd 192 / hd_v 128: n_layers x the
+   dense prefill calls, all on the tensor-core body; the dense MLA
+   decode attention's share of the decode seconds), then
+   ``CoupledEngine`` on them.  3q: Llama-3.2-Vision whole on the dense
+   backend (the engines over 3c's requests, then ``CoupledEngine`` over
+   prompts of 64-2,000, one past its 1,600 patches) and Whisper-tiny
+   whole through ``Cluster(runtime="engine", backend="dense")`` over
+   3l's requests: kernel 5's causal and non-causal launches, the first
+   chunk's cross reads on f32 (the unrounded cross K/V), wire bytes with
+   the encoder tokens counted.  Every kernel's launch counter is set to
+   0 just before each run and read just after it.
 4. Device vs CPU in f32, once on the card (kernels) and once on the CPU
    (plain versions): qwen2-0.5b at 2 layers on the served requests (4),
    DeepSeek-V2 at 2 layers (dense prefix + 1 routed) on 2 short requests
@@ -104,13 +122,17 @@ Phases, in order (any failure exits non-zero):
    full width, window 64 in 64-token chunks) and xLSTM at its smoke
    depth (full width, through ``Cluster``, and on the card also through
    ``AsyncCluster``, whose dense payloads cross streams): card and CPU
-   token-identical, first-chunk logits within tolerance.
+   token-identical, first-chunk logits within tolerance.  4h: 4b's and
+   4c's weights and requests on the dense backend, on the card and on
+   the CPU: the same tokens as each other and as the paged backend's on
+   the card, and the dense ck / cv equal to the paged cross pages.
 5. Numbers: prefill and decode tokens/s of the served runs, and each
    kernel's time at the served shapes beside its bound, its plain
    version and one PyTorch library call, measured with CUDA events
    (kernels 1 and 2 also at OPT-13B's and windowed Mistral-Nemo's
    shapes, kernel 5 at 3m's chunks and 3o's whole prompts, the library
-   call then on the in-window K/V),
+   call then on the in-window K/V, at 3p's MLA chunks and at 3q's cross
+   reads in prefill and decode),
    with its achieved TFLOP/s, the body it ran and the wrapper's host µs
    a call; then, every row timed, the card's device µs a call by the
    profiler, with the device TB/s and share of the bound.  Last, phase
@@ -242,6 +264,17 @@ XLSTM_SERVE = dict(max_seq=512, max_slots=4)
 RG_CHECK = dict(window=64, n=2, lo=100, hi=300, new=8, chunk_size=64)
 XLSTM_CHECK = dict(n=2, lo=32, hi=96, new=8)
 XLSTM_CHECK_CHUNK = 64
+# phases 2g, 3p, 3q, 4h, 5: dense MLA and dense cross-attention.  Kernel
+# 5's MLA chunks start at MLA_CHUNKS; the 16-head slice holds the split
+# at MLA's widths; CoupledEngine's Llama-3.2-Vision prompts reach past
+# its 1,600 patches (the longest of the seeded 64-2,000 is 1,711)
+MLA_CHUNKS = (0, 512, 1536)
+MLA_SLICE_HEADS = 16
+COUPLED_PROMPTS = (64, 2000)
+COUPLED_LONG = 2000
+# phase 4h: f32 dense cross K/V against the paged cross pages (the same
+# f32 products on the same card)
+CROSS_KV_TOL = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -663,41 +696,45 @@ def dense_args(cfg, dtype, device, gen):
             DENSE["q_offset"])
 
 
-def dense_keys(q, kv_len, q_off, window=0):
-    """(b, sq) int64 numpy: the keys each row may attend (causal, below
-    kv_len, inside the window)."""
+def dense_keys(q, kv_len, q_off, window=0, causal=True):
+    """(b, sq) int64 numpy: the keys each row may attend (causal unless
+    ``causal`` is false, below kv_len, inside the window)."""
     sq = q.shape[1]
     q_pos = q_off + np.arange(sq)[None, :]
-    hi = np.minimum(kv_len.cpu().numpy().astype(np.int64)[:, None],
-                    q_pos + 1)
+    hi = kv_len.cpu().numpy().astype(np.int64)[:, None]
+    if causal:
+        hi = np.minimum(hi, q_pos + 1)
     lo = np.maximum(q_pos - window + 1, 0) if window else 0
-    return np.maximum(hi - lo, 0)
+    return np.broadcast_to(np.maximum(hi - lo, 0), (len(hi), sq))
 
 
-def dense_work(q, k_cache, v_cache, kv_len, q_off, window=0):
+def dense_work(q, k_cache, v_cache, kv_len, q_off, window=0, causal=True):
     """(bytes, FLOPs) the dense prefill needs on these inputs: q read and
     out written once, each request's K/V read once from the first key
     the chunk's first query may see (the window's start) up to
-    min(kv_len, end of the chunk), and QK^T + PV for each (query head,
-    key) the masks admit."""
+    min(kv_len, end of the chunk) (non-causal: up to kv_len), and QK^T +
+    PV for each (query head, key) the masks admit."""
     es = q.element_size()
     b, sq, h, hd = q.shape
     kvh, hd_v = k_cache.shape[2], v_cache.shape[3]
     lo = max(0, q_off - window + 1) if window else 0
-    kv = np.maximum(np.minimum(kv_len.cpu().numpy().astype(np.int64),
-                               q_off + sq) - lo, 0)
+    hi = kv_len.cpu().numpy().astype(np.int64)
+    if causal:
+        hi = np.minimum(hi, q_off + sq)
+    kv = np.maximum(hi - lo, 0)
     nbytes = (q.numel() * es + b * sq * h * hd_v * es
               + int(kv.sum()) * kvh * (hd + hd_v) * es + 4 * b)
-    keys = int(dense_keys(q, kv_len, q_off, window).sum())
+    keys = int(dense_keys(q, kv_len, q_off, window, causal).sum())
     return nbytes, keys * h * 2 * (hd + hd_v)
 
 
-def sdpa_dense_call(q, k_cache, v_cache, kv_len, q_off, window=0):
+def sdpa_dense_call(q, k_cache, v_cache, kv_len, q_off, window=0,
+                    causal=True):
     """One library call computing the dense prefill on the dense caches
-    (heads expanded to the query heads) with the boolean causal and
-    length mask; with a window, on the keys from the first the chunk's
-    first query may see, and the window in the mask (a yardstick: the
-    port never uses it)."""
+    (heads expanded to the query heads) with the boolean causal (unless
+    ``causal`` is false) and length mask; with a window, on the keys
+    from the first the chunk's first query may see, and the window in
+    the mask (a yardstick: the port never uses it)."""
     import torch
     import torch.nn.functional as F
     b, sq, h, hd = q.shape
@@ -708,8 +745,9 @@ def sdpa_dense_call(q, k_cache, v_cache, kv_len, q_off, window=0):
     v = v_cache.permute(0, 2, 1, 3).repeat_interleave(rep, 1).contiguous()
     k_pos = lo + torch.arange(skv, device=q.device)
     q_pos = q_off + torch.arange(sq, device=q.device)
-    mask = ((k_pos[None, None, :] < kv_len.long()[:, None, None])
-            & (q_pos[None, :, None] >= k_pos[None, None, :]))
+    mask = k_pos[None, None, :] < kv_len.long()[:, None, None]
+    if causal:
+        mask = mask & (q_pos[None, :, None] >= k_pos[None, None, :])
     if window:
         mask = mask & (k_pos[None, None, :] > q_pos[None, :, None] - window)
     mask = mask[:, None]
@@ -1119,7 +1157,7 @@ def serve(cfg, params, reqs, device, time_it=False, watch=None, **over):
     from repro_torch.core.decode_engine import DecodeEngine
     from repro_torch.core.prefill_engine import PrefillEngine
     from repro_torch.core.sched.prefill_scheduler import PrefillScheduler
-    opts = dict(SERVE, prefix_cache=False, sched_batch=None)
+    opts = dict(SERVE, prefix_cache=False, sched_batch=None, backend="auto")
     opts.update({k: v for k, v in over.items() if v is not None})
     # the default scheduler unless the caller sets its batch (sjf)
     pe = PrefillEngine("p0", cfg, params, device=device,
@@ -1128,11 +1166,13 @@ def serve(cfg, params, reqs, device, time_it=False, watch=None, **over):
                        chunk_size=opts["chunk_size"],
                        max_seq=opts["max_seq"], n_pages=opts["n_pages"],
                        page_size=opts["page_size"],
-                       prefix_cache=opts["prefix_cache"])
+                       prefix_cache=opts["prefix_cache"],
+                       backend=opts["backend"])
     de = DecodeEngine("d0", cfg, params, device=device,
                       max_slots=opts["max_slots"], max_seq=opts["max_seq"],
                       n_pages=opts["n_pages"], page_size=opts["page_size"],
-                      prefix_cache=opts["prefix_cache"])
+                      prefix_cache=opts["prefix_cache"],
+                      backend=opts["backend"])
     for r in reqs:
         pe.submit(r)
     out, t, t_pre, t_dec = {}, 0.0, 0.0, 0.0
@@ -1225,37 +1265,44 @@ TC_KERNELS = ("paged_prefill_attention", "chunked_prefill_attention",
 
 
 def read_launches(kernels):
-    """The launch counters by kernel; kernel 1's non-causal launches
-    under ``paged_prefill_attention (causal=False)`` and the tensor-core
-    launches of kernels 1, 5 and 3 under ``<name> (tensor cores)``."""
+    """The launch counters by kernel; the non-causal launches of kernels
+    1 and 5 under ``<name> (causal=False)`` and the tensor-core launches
+    of kernels 1, 5 and 3 under ``<name> (tensor cores)``."""
     launches = {name: fn.launches for name, fn in kernels.items()}
-    launches["paged_prefill_attention (causal=False)"] = kernels[
-        "paged_prefill_attention"].noncausal_launches
+    for name in ("paged_prefill_attention", "chunked_prefill_attention"):
+        launches[f"{name} (causal=False)"] = kernels[name].noncausal_launches
     for name in TC_KERNELS:
         launches[f"{name} (tensor cores)"] = kernels[name].tensor_core_launches
     return launches
 
 
-def check_bodies(tag, launches, dtype):
+def check_bodies(tag, launches, dtype, f32_reads=0):
     """Every launch of kernels 1, 5 and 3 ran the tensor-core body in
-    bf16 and the CUDA-core body in f32."""
+    bf16 and the CUDA-core body in f32.  ``f32_reads``: launches of
+    kernel 5 on f32 inputs in a bf16 run (the dense cross read of a
+    request's first chunk attends the unrounded f32 cross K/V), which
+    take the CUDA-core body."""
     for name in TC_KERNELS:
         tc = launches[f"{name} (tensor cores)"]
         want = launches[name] if dtype == "bfloat16" else 0
+        if name == "chunked_prefill_attention" and dtype == "bfloat16":
+            want -= f32_reads
         check(tc == want, f"phase {tag}: {name} launched {launches[name]} "
               f"times, {tc} on the tensor-core body, in {dtype}")
 
 
 def serve_phase(tag, cfg, params, device, kernels, card,
                 prompts=PROMPT_RANGE, enc=None, n=N_REQUESTS,
-                new=NEW_TOKENS, watch=None, stats=None, hooks=(), **over):
+                new=NEW_TOKENS, watch=None, stats=None, hooks=(),
+                f32_reads=0, **over):
     """Phase 3/3b-3d/3f-3h/3m/3n: warm up, then serve ``n`` requests of
     ``new`` tokens (tokens drawn in ``cfg``'s vocabulary, prompt lengths
     in ``prompts``, frontend embeddings ``enc``; ``over`` replaces SERVE
     settings, ``watch`` as in serve) with every launch counter set to 0
     (and every one of ``hooks`` reset) just before and read just after.
     Checks the run (every bf16 launch of kernels 1, 5 and 3 on the
-    tensor-core body; no page held on the paged backend) and prints its
+    tensor-core body, but for ``f32_reads`` of kernel 5 as
+    ``check_bodies`` says; no page held on the paged backend) and prints its
     numbers; ``stats``, a dict, takes the tokens by rid and the prefill
     and decode seconds.  Returns (launches by kernel as
     ``read_launches`` gives them, prefill engine, decode engine)."""
@@ -1270,7 +1317,7 @@ def serve_phase(tag, cfg, params, device, kernels, card,
     out, pe, de, t_pre, t_dec = serve(cfg, params, reqs, device,
                                       time_it=True, watch=watch, **over)
     launches = read_launches(kernels)
-    check_bodies(tag, launches, cfg.dtype)
+    check_bodies(tag, launches, cfg.dtype, f32_reads)
     check(len(out) == len(reqs), f"{len(out)} of {len(reqs)} finished")
     for rid, toks in out.items():
         check(len(toks) == new, f"{rid}: {len(toks)} tokens")
@@ -1300,7 +1347,8 @@ def deepseek_vs_cpu(device):
     routed), f32, weights drawn on the card and copied to the CPU; the
     same 2 short requests served on both; first-chunk logits within
     LOGIT_TOL, token streams identical unless a routing near-tie or a
-    near-tied argmax explains the divergence (printed as such)."""
+    near-tied argmax explains the divergence (printed as such).  Then
+    phase 4h on the same weights (``dense_vs_paged``)."""
     import torch
     from repro_torch.configs.deepseek_v2_236b import served
     from repro_torch.models import model as M
@@ -1348,6 +1396,10 @@ def deepseek_vs_cpu(device):
     print(f"phase 4b: DeepSeek-V2 2-layer f32 device vs CPU: first-chunk "
           f"logits max abs err {lerr:.3e} (tolerance {LOGIT_TOL:g}), "
           f"{time.perf_counter() - t0:.1f} s")
+    # phase 4h: the same weights and requests on the dense backend
+    dense_vs_paged("DeepSeek-V2 at 2 layers", cfg, gpu_params, cpu_params,
+                   lambda: make_requests(cfg.vocab_size, **DS_CHECK),
+                   out_gpu, device, coupled=True)
 
 
 def cross_serve_phase(tag, cfg, device, kernels, card, prompts):
@@ -1415,7 +1467,9 @@ def cross_vs_cpu(cfg, device):
     """Phase 4c: ``cfg`` in f32, weights drawn on the card and copied to
     the CPU; the same CROSS_CHECK requests with the same frontend
     embeddings served on both; identical token streams and first-chunk
-    logits within LOGIT_TOL."""
+    logits within LOGIT_TOL.  Then phase 4h on the same weights and
+    inputs (``dense_vs_paged``, the cross pages of the card's paged run
+    against the dense ck / cv)."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.models.frontends import fake_frontend
@@ -1426,11 +1480,17 @@ def cross_vs_cpu(cfg, device):
     cpu_params = to_device(gpu_params, "cpu")
     enc = fake_frontend(cfg, CROSS_CHECK["n"], torch.Generator(
         device=device).manual_seed(SEED + 7), device).cpu()
-    runs = []
-    for dev, params in ((device, gpu_params), ("cpu", cpu_params)):
+    runs, payloads = [], {}
+
+    def watch(x):
+        if hasattr(x, "first_token"):        # a prefilled payload
+            payloads[x.req.rid] = x
+    for i, (dev, params) in enumerate(((device, gpu_params),
+                                       ("cpu", cpu_params))):
         with FirstLogits() as rec:
             out, pe, _, _, _ = serve(cfg, params, make_requests(
-                cfg.vocab_size, enc=enc, **CROSS_CHECK), dev, n_pages=512)
+                cfg.vocab_size, enc=enc, **CROSS_CHECK), dev, n_pages=512,
+                watch=None if i else watch)
         check(pe.fused_calls == 1 and pe.encoder_calls == 1,
               f"phase 4c: {pe.fused_calls} fused calls, "
               f"{pe.encoder_calls} with encoder work, expected 1 and 1")
@@ -1447,6 +1507,11 @@ def cross_vs_cpu(cfg, device):
           f"CPU: {len(out_gpu)} token streams identical, first-chunk "
           f"logits max abs err {lerr:.3e} (tolerance {LOGIT_TOL:g}), "
           f"{time.perf_counter() - t0:.1f} s")
+    # phase 4h: the same weights, requests and embeddings, dense backend
+    dense_vs_paged(f"{cfg.name} ({cfg.n_layers} layers)", cfg, gpu_params,
+                   cpu_params, lambda: make_requests(
+                       cfg.vocab_size, enc=enc, **CROSS_CHECK),
+                   out_gpu, device, payloads)
 
 
 def cluster_run(cfg, params, device, kernels=None):
@@ -2336,101 +2401,117 @@ class FiniteLogits:
         M.prefill, M.decode_step = self._saved
 
 
-def dense_served_case(cfg, b, sq, q_off, skv, kv_len, dtype, device, gen):
-    """(q, k_cache, v_cache, kv_len, q_off) at ``cfg``'s attention widths,
-    every cache position at or past a request's kv_len holding garbage
-    (+1e4 in K, -1e4 in V) that must never be read."""
+def dense_case(widths, b, sq, q_off, skv, kv_len, dtype, device, gen):
+    """(q, k_cache, v_cache, kv_len, q_off) at the attention widths (h,
+    kvh, hd, hd_v), every cache position at or past a request's kv_len
+    holding garbage (+1e4 in K, -1e4 in V) that must never be read."""
     import torch
-    hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
+    h, kvh, hd, hd_v = widths
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device)
-    k, v = randn(b, skv, kvh, hd), randn(b, skv, kvh, hd)
+    k, v = randn(b, skv, kvh, hd), randn(b, skv, kvh, hd_v)
     for i, n in enumerate(kv_len):
         k[i, n:], v[i, n:] = 1e4, -1e4
-    return (randn(b, sq, cfg.n_heads, hd).to(dtype), k.to(dtype),
-            v.to(dtype), torch.tensor(kv_len, dtype=torch.int32,
-                                      device=device), q_off)
+    return (randn(b, sq, h, hd).to(dtype), k.to(dtype), v.to(dtype),
+            torch.tensor(kv_len, dtype=torch.int32, device=device), q_off)
+
+
+def gqa_widths(cfg):
+    return (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.resolved_head_dim)
+
+
+def dense_served_case(cfg, b, sq, q_off, skv, kv_len, dtype, device, gen):
+    """``dense_case`` at ``cfg``'s GQA attention widths."""
+    return dense_case(gqa_widths(cfg), b, sq, q_off, skv, kv_len, dtype,
+                      device, gen)
 
 
 def dense_served_shapes(rg_cfg, opt_cfg):
-    """Phase 2f's kernel-5 cases: (cfg, window, split, b, sq, q_off,
-    skv, kv_len), ``split`` true where the bf16 plan must split the keys
-    and merge the shares.  RecurrentGemma's 512-query chunks at each
-    RG_CHUNKS start in caches of max_seq, its local window: 4 requests
-    with ragged kv_len and a 0 (no split), and the one request a call
-    that phase 3m's prefill engine gives it, a full chunk at each start
-    and a short last one of 300 (split); the coupled OPT-13B's whole
-    prompts (one request a call, q_offset 0, a cache of max_seq): the
-    longest, a middle and the shortest of phase 3o's."""
+    """Phase 2f's kernel-5 cases, as ``check_dense_cases`` takes them:
+    RecurrentGemma's 512-query chunks at each RG_CHUNKS start in caches
+    of max_seq, its local window: 4 requests with ragged kv_len and a 0
+    (no split), and the one request a call that phase 3m's prefill
+    engine gives it, a full chunk at each start and a short last one of
+    300 (split); the coupled OPT-13B's whole prompts (one request a
+    call, q_offset 0, a cache of max_seq): the longest, a middle and the
+    shortest of phase 3o's."""
     sq, skv, w = (RG_SERVE["chunk_size"], RG_SERVE["max_seq"],
                   rg_cfg.local_window)
-    out = [(rg_cfg, w, False, 4, sq, q0, skv,
-            [q0 + sq, q0 + 300, 0, q0 + 37]) for q0 in RG_CHUNKS]
-    out += [(rg_cfg, w, True, 1, sq, q0, skv, [q0 + sq])
-            for q0 in RG_CHUNKS]
-    out.append((rg_cfg, w, True, 1, 300, RG_CHUNKS[1], skv,
-                [RG_CHUNKS[1] + 300]))
+    rg = (rg_cfg.name, gqa_widths(rg_cfg), w, True)
+    out = [(*rg, False, 4, sq, q0, skv, [q0 + sq, q0 + 300, 0, q0 + 37])
+           for q0 in RG_CHUNKS]
+    out += [(*rg, True, 1, sq, q0, skv, [q0 + sq]) for q0 in RG_CHUNKS]
+    out.append((*rg, True, 1, 300, RG_CHUNKS[1], skv, [RG_CHUNKS[1] + 300]))
     lens = sorted(r.prompt_len for r in make_requests(
         opt_cfg.vocab_size, lo=OPT_PROMPTS[0], hi=OPT_PROMPTS[1]))
     for n in (lens[-1], lens[len(lens) // 2], lens[0]):
-        out.append((opt_cfg, 0, False, 1, n, 0, SERVE["max_seq"], [n]))
+        out.append((opt_cfg.name, gqa_widths(opt_cfg), 0, True, False, 1, n,
+                    0, SERVE["max_seq"], [n]))
     return out
 
 
-def check_dense_served(device, kernels):
-    """Phase 2f: kernel 5 against its plain version at the shapes the
-    dense backend serves it (``dense_served_shapes``), bf16 and f32, on
-    caches of garbage past kv_len: every row within ``limit``, rows
-    without an attendable key exactly 0, every bf16 launch on the
-    tensor-core body and no f32 one, and the cases marked ``split``
-    planned in more than one share in bf16 (so the partial records and
-    their merge are held too).  Returns the largest bf16 error."""
+def check_dense_cases(tag, cases, device, kernels, seed):
+    """Phases 2f / 2g: kernel 5 against its plain version on ``cases``
+    ((what, widths (h, kvh, hd, hd_v), window, causal, split, b, sq,
+    q_off, skv, kv_len) each), bf16 and f32, on caches of garbage past
+    kv_len (``dense_case``, drawn from ``seed``): every row within
+    ``limit``, rows without an attendable key exactly 0, every bf16
+    launch on the tensor-core body and no f32 one, the non-causal ones
+    counted as such, and the cases marked ``split`` planned in more
+    than one share in bf16 (so the partial records and their merge are
+    held too).  Returns the largest bf16 error."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.chunked_prefill_attention import (
         chunked_prefill_attention)
     from repro_torch.kernels.prefill_plan import prefill_plan, sm_count
-    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    gen = torch.Generator(device=device).manual_seed(seed)
     name, bf16_err = "chunked_prefill_attention", 0.0
-    for cfg, window, split, *shape in dense_served_shapes(
-            get_config(RG_ARCH), get_config(OPT_ARCH)):
+    for what, widths, window, causal, split, *shape in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            args = dense_served_case(cfg, *shape, dtype, device, gen)
+            args = dense_case(widths, *shape, dtype, device, gen)
             q, k, v, kv_len, q_off = args
             splits = prefill_plan(dtype, *q.shape[:3], k.shape[2],
                                   q.shape[3], v.shape[3], 1, k.shape[1],
                                   sm_count(device)).splits
             if split and dtype == torch.bfloat16:
-                check(splits > 1, f"phase 2f: {tuple(q.shape)} at {q_off} "
-                      f"planned {splits} share, not a split")
+                check(splits > 1, f"phase {tag}: {what} {tuple(q.shape)} "
+                      f"at {q_off} planned {splits} share, not a split")
             zero_launches(kernels)
-            got = chunked_prefill_attention(*args, window=window)
-            exp = ref.chunked_prefill_attention(*args, window=window)
+            got = chunked_prefill_attention(*args, window=window,
+                                            causal=causal)
+            exp = ref.chunked_prefill_attention(*args, window=window,
+                                                causal=causal)
             torch.cuda.synchronize()
             launches = read_launches(kernels)
-            check(launches[name] == 1 and launches[f"{name} (tensor cores)"]
-                  == int(dtype == torch.bfloat16), f"phase 2f: launches "
-                  f"{launches}")
-            check(bool(torch.isfinite(got).all()), "phase 2f: non-finite")
-            dead = torch.from_numpy(dense_keys(q, kv_len, q_off, window)
-                                    == 0).to(device)
+            check(launches[name] == 1
+                  and launches[f"{name} (tensor cores)"]
+                  == int(dtype == torch.bfloat16)
+                  and launches[f"{name} (causal=False)"] == int(not causal),
+                  f"phase {tag}: {what}: launches {launches}")
+            check(bool(torch.isfinite(got).all()), f"phase {tag}: "
+                  "non-finite")
+            dead = torch.from_numpy(dense_keys(q, kv_len, q_off, window,
+                                               causal) == 0).to(device)
             check(float(got[dead].float().abs().sum()) == 0.0,
-                  "phase 2f: a row without keys is not 0")
+                  f"phase {tag}: a row without keys is not 0")
             worst = {}
             compare(name, got, exp, worst)
             err, share = worst[name]
             if dtype == torch.bfloat16:
                 bf16_err = max(bf16_err, err)
-            print(f"phase 2f: {name} vs plain, {cfg.name}, {dtype}, "
+            h, kvh, hd, hd_v = widths
+            print(f"phase {tag}: {name} vs plain, {what}, {dtype}, "
+                  f"{'causal' if causal else 'non-causal'}, "
                   f"{q.shape[0]} x {q.shape[1]} queries at {q_off} of "
-                  f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
-                  f"{cfg.resolved_head_dim}, cache {shape[3]}, kv_len "
-                  f"{shape[4]}, window {window}, {splits} share(s): "
-                  f"max abs err {err:.3e}, "
-                  f"{share:.3f} of the limit, {int(dead.sum())} rows "
-                  f"without keys exactly 0")
+                  f"{h}/{kvh} heads of {hd} (V {hd_v}), cache {shape[3]}, "
+                  f"kv_len {shape[4]}, window {window}, {splits} share(s): "
+                  f"max abs err {err:.3e}, {share:.3f} of the limit, "
+                  f"{int(dead.sum())} rows without keys exactly 0")
+            del args, q, k, v, got, exp
+    torch.cuda.empty_cache()
     return bf16_err
 
 
@@ -2561,49 +2642,21 @@ def coupled_phase(cfg, params, disagg, device, kernels, card):
     the dense decode attention's share of the decode seconds, and how
     many streams equal phase 3f's disaggregated ones (``disagg``; the
     coupled engine stops on decode_len and emits one token more)."""
-    import torch
     from repro_torch.models import attention as A
-    from repro_torch.runtime.baseline_vllm import CoupledEngine
-    kw = dict(max_slots=SERVE["max_slots"], max_seq=SERVE["max_seq"],
-              n_pages=SERVE["n_pages"], page_size=SERVE["page_size"],
-              device=device)
-    run_coupled(CoupledEngine(cfg, params, **dict(kw, max_slots=1)),
-                make_requests(cfg.vocab_size, n=1, lo=64, hi=64,
-                              new=2))                      # warm-up
     reqs = make_requests(cfg.vocab_size, lo=OPT_PROMPTS[0],
                          hi=OPT_PROMPTS[1])
-    eng = CoupledEngine(cfg, params, **kw)
-    cache_gb = sum(t.numel() * t.element_size() for layer in eng.cache
-                   for t in layer.values()) / 1e9
-    zero_launches(kernels)
-    with EventTimer(A, "decode_attn_batched") as attn:
-        out, t_pre, t_dec = run_coupled(eng, reqs, torch.cuda.synchronize)
-        attn_ms = attn.ms()
-    launches = read_launches(kernels)
+    out, launches, _ = coupled_run_phase(
+        "3o", cfg, params, reqs, device, kernels, card,
+        {"dense decode attention": EventTimer(A, "decode_attn_batched")})
     name = "chunked_prefill_attention"
-    check_bodies("3o", launches, cfg.dtype)
-    check(len(out) == len(reqs) and launches[name]
-          == cfg.n_layers * len(reqs) and sum(launches[k] for k in kernels)
-          == launches[name], f"phase 3o: {len(out)} finished, launches "
-          f"{launches}")
+    check(launches[name] == cfg.n_layers * len(reqs), f"phase 3o: "
+          f"launches {launches}")
     same = sum(out[rid][:len(toks)] == toks for rid, toks in disagg.items())
-    n_prompt = sum(r.prompt_len for r in reqs)
-    n_decoded = sum(len(t) - 1 for t in out.values())
-    print(f"phase 3o: CoupledEngine, {cfg.name} whole, dense slot cache "
-          f"{cache_gb:.1f} GB: {eng.iterations} iterations "
-          f"({eng.prefill_iterations} prefill), kernel 5 launched "
-          f"{launches[name]} = {cfg.n_layers} layers x {len(reqs)} whole "
-          f"prompts, {launches[name + ' (tensor cores)']} on the "
-          f"tensor-core body")
-    print(f"phase 3o: prefill {n_prompt} tokens in {t_pre:.3f} s = "
-          f"{n_prompt / t_pre:.1f} tokens/s; decode {n_decoded} tokens in "
-          f"{t_dec:.3f} s = {n_decoded / t_dec:.1f} tokens/s, dense decode "
-          f"attention {attn_ms:.1f} ms = {100 * attn_ms / 1e3 / t_dec:.1f}% "
-          f"of it ({card})")
-    print(f"phase 3o: {same} of {len(disagg)} streams equal phase 3f's "
-          "disaggregated ones (bf16: near-tied top logits may part them)")
-    del eng
-    torch.cuda.empty_cache()
+    print(f"phase 3o: kernel 5 launched {launches[name]} = {cfg.n_layers} "
+          f"layers x {len(reqs)} whole prompts, "
+          f"{launches[name + ' (tensor cores)']} on the tensor-core body; "
+          f"{same} of {len(disagg)} streams equal phase 3f's disaggregated "
+          "ones (bf16: near-tied top logits may part them)")
     return launches
 
 
@@ -2716,6 +2769,359 @@ def dense_vs_cpu(cfg2, gpu_params, cpu_params, device):
           f"{LOGIT_TOL:g}), {time.perf_counter() - t0:.1f} s")
     del gpu_x
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# dense MLA and dense cross-attention (phases 2g, 3p, 3q, 4h)
+# ---------------------------------------------------------------------------
+def mla_widths(cfg, heads=None):
+    """Kernel 5's widths on the dense MLA prefill: every head its own
+    KV head after decompression, K of qk_nope + qk_rope, V of v_head."""
+    m, h = cfg.mla, heads or cfg.n_heads
+    return (h, h, m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim)
+
+
+def mla_cross_shapes(ds_cfg, vlm_cfg, wh_cfg):
+    """Phase 2g's kernel-5 cases, as ``check_dense_cases`` takes them.
+    DeepSeek-V2's dense MLA prefill (128 / 128 heads, hd 192,
+    hd_v 128): chunks of 512 at MLA_CHUNKS in caches of max_seq, one
+    request a call as the engine gives them and four with ragged kv_len
+    and a 0; its 128 KV heads fill the card without a split, so a
+    16-head slice of the same widths (one card of eight under head
+    sharding) holds the split at these widths.  The cross reads,
+    non-causal, over each cross model's encoder tokens: a chunk of 512
+    queries of one request, the 8 decode slots' single queries, and
+    Llama-3.2-Vision's whole prompt of 2,000 in the coupled engine (sq
+    > skv)."""
+    sq, skv = SERVE["chunk_size"], SERVE["max_seq"]
+    mla = ("MLA", mla_widths(ds_cfg), 0, True)
+    out = [(*mla, False, 1, sq, q0, skv, [q0 + sq]) for q0 in MLA_CHUNKS]
+    out += [(*mla, False, 4, sq, q0, skv, [q0 + sq, q0 + 300, 0, q0 + 37])
+            for q0 in MLA_CHUNKS]
+    q0 = MLA_CHUNKS[-1]
+    out.append((f"MLA, a {MLA_SLICE_HEADS}-head slice",
+                mla_widths(ds_cfg, MLA_SLICE_HEADS), 0, True, True, 1, sq,
+                q0, skv, [q0 + sq]))
+    for cfg in (vlm_cfg, wh_cfg):
+        ec, slots = cfg.cross_ctx, SERVE["max_slots"]
+        cross = (gqa_widths(cfg), 0, False, False)
+        out.append((f"{cfg.name} cross read", *cross, 1, sq, 0, ec, [ec]))
+        out.append((f"{cfg.name} cross read, decode", *cross, slots, 1, 0,
+                    ec, [ec] * slots))
+    out.append((f"{vlm_cfg.name} cross read, a whole prompt",
+                gqa_widths(vlm_cfg), 0, False, False, 1, COUPLED_LONG, 0,
+                vlm_cfg.cross_ctx, [vlm_cfg.cross_ctx]))
+    return out
+
+
+def kernel5_calls(launches):
+    name = "chunked_prefill_attention"
+    return (launches[name], launches[f"{name} (causal=False)"],
+            launches[f"{name} (tensor cores)"])
+
+
+def only_kernel5(tag, launches, kernels):
+    check(sum(launches[k] for k in kernels)
+          == launches["chunked_prefill_attention"],
+          f"phase {tag}: a paged kernel launched on the dense backend: "
+          f"{launches}")
+
+
+def coupled_run_phase(tag, cfg, params, reqs, device, kernels, card,
+                      timers=()):
+    """Phases 3o / 3p / 3q: ``reqs`` through ``CoupledEngine`` (SERVE's
+    slots, max_seq and pages) on ``params`` after a warm-up, launch
+    counters set to 0 just before and read just after, every bf16 launch
+    of kernel 5 on the tensor-core body and no other kernel, every
+    request finished.  Prints the slot cache's size, tokens/s and each of
+    ``timers``' (name: EventTimer) share of the decode seconds.  Returns
+    (tokens by rid, launches, decode iterations)."""
+    import torch
+    from repro_torch.runtime.baseline_vllm import CoupledEngine
+    kw = dict(max_slots=SERVE["max_slots"], max_seq=SERVE["max_seq"],
+              n_pages=SERVE["n_pages"], page_size=SERVE["page_size"],
+              device=device)
+    run_coupled(CoupledEngine(cfg, params, **dict(kw, max_slots=1)),
+                make_requests(cfg.vocab_size, n=1, lo=64, hi=64,
+                              new=2))                      # warm-up
+    eng = CoupledEngine(cfg, params, **kw)
+    cache_gb = sum(t.numel() * t.element_size() for layer in eng.cache
+                   for t in layer.values()) / 1e9
+    zero_launches(kernels)
+    timers = dict(timers)
+    with contextlib.ExitStack() as stack:
+        for tm in timers.values():
+            stack.enter_context(tm)
+        out, t_pre, t_dec = run_coupled(eng, reqs, torch.cuda.synchronize)
+    launches = read_launches(kernels)
+    check_bodies(tag, launches, cfg.dtype)
+    only_kernel5(tag, launches, kernels)
+    check(len(out) == len(reqs), f"phase {tag}: {len(out)} of {len(reqs)} "
+          "finished in CoupledEngine")
+    n_prompt = sum(r.prompt_len for r in reqs)
+    n_decoded = sum(len(t) - 1 for t in out.values())
+    shares = "".join(f", {what} {tm.ms():.1f} ms = "
+                     f"{100 * tm.ms() / 1e3 / t_dec:.1f}% of it"
+                     for what, tm in timers.items())
+    print(f"phase {tag}: CoupledEngine, {cfg.name}, dense slot cache "
+          f"{cache_gb:.1f} GB: {eng.iterations} iterations "
+          f"({eng.prefill_iterations} prefill); prefill {n_prompt} tokens "
+          f"in {t_pre:.3f} s = {n_prompt / t_pre:.1f} tokens/s; decode "
+          f"{n_decoded} tokens in {t_dec:.3f} s = {n_decoded / t_dec:.1f} "
+          f"tokens/s{shares} ({card})")
+    iters = eng.iterations - eng.prefill_iterations
+    del eng
+    torch.cuda.empty_cache()
+    return out, launches, iters
+
+
+def mla_dense_phase(cfg, params, device, kernels, card):
+    """Phase 3p: DeepSeek-V2 at ``served()``'s depth (full width) in bf16
+    on the dense backend, on phase 3b's weights: one prefill and one
+    decode engine sharing that one copy over phase 3b's requests, kernel
+    5 launched n_layers x the dense prefill calls (one a segment), all on the
+    tensor-core body at hd 192 / hd_v 128, no other kernel; the dense
+    MLA decode attention's share of the decode seconds (CUDA events);
+    wire bytes those of the latent (``kv_bytes``).  Then CoupledEngine
+    on the same weights and requests (kernel 5: n_layers x 8 whole
+    prompts).  Returns the engines' launches."""
+    import torch
+    from repro_torch.core.backend import backend_for
+    from repro_torch.core.kv_transfer import kv_bytes
+    from repro_torch.models import attention as A
+    spec = backend_for(cfg, "dense")
+    check((spec.layout, spec.cross) == ("dense", "none"), f"phase 3p: "
+          f"{spec}")
+    print(f"phase 3p: {cfg.name} at {cfg.n_layers} layers, full width, "
+          f"phase 3b's {count_params(params) / 1e9:.2f} G parameters in "
+          f"bf16; dense backend, kernel 5 at "
+          f"{'/'.join(map(str, mla_widths(cfg)))} (heads / KV heads / hd / "
+          f"hd_v)")
+    stats = {}
+    timer = EventTimer(A, "mla_decode_attn")
+    with FiniteLogits() as finite, timer:
+        launches, pe, de = serve_phase("3p", cfg, params, device, kernels,
+                                       card, stats=stats,
+                                       hooks=(finite, timer),
+                                       backend="dense")
+        calls = finite.prefill_calls
+    n, nc, tc = kernel5_calls(launches)
+    only_kernel5("3p", launches, kernels)
+    check(pe.backend == de.backend == "dense" and n == cfg.n_layers * calls
+          > 0 and nc == 0 and tc == n, f"phase 3p: launches {launches}, "
+          f"{calls} prefill calls x {cfg.n_layers} layers")
+    reqs = make_requests(cfg.vocab_size)
+    wire = sum(kv_bytes(cfg, r.prompt_len) for r in reqs)
+    check(pe.network.bytes_sent == wire, f"phase 3p: {pe.network.bytes_sent} "
+          f"wire bytes, expected {wire}")
+    ms = timer.ms()
+    print(f"phase 3p: kernel 5 launched {n} = {cfg.n_layers} layers x "
+          f"{calls} dense prefill calls, {tc} on the tensor-core body; "
+          f"dense MLA decode attention (mla_decode_attn) {timer.calls} "
+          f"calls, {ms:.1f} ms = {100 * ms / 1e3 / stats['t_dec']:.1f}% of "
+          f"the decode wall seconds; {wire} wire bytes (the latent, "
+          f"{cfg.kv_bytes_per_token(2)} a token) ({card})")
+    disagg = stats["out"]
+    del pe, de
+    out, c_launches, _ = coupled_run_phase(
+        "3p", cfg, params, reqs, device, kernels, card,
+        {"dense MLA decode attention": EventTimer(A, "mla_decode_attn")})
+    check(kernel5_calls(c_launches)[0] == cfg.n_layers * len(reqs),
+          f"phase 3p: CoupledEngine launches {c_launches}")
+    same = sum(out[rid][:len(t)] == t for rid, t in disagg.items())
+    print(f"phase 3p: CoupledEngine kernel 5 launches "
+          f"{c_launches['chunked_prefill_attention']} = {cfg.n_layers} "
+          f"layers x {len(reqs)} whole prompts; {same} of {len(disagg)} "
+          "streams equal the engines' (bf16: near-tied top logits may "
+          "part them)")
+    return launches
+
+
+def cross_dense_phase(vlm_cfg, wh_cfg, device, kernels, card):
+    """Phase 3q: Llama-3.2-Vision whole and Whisper-tiny whole in bf16 on
+    the dense backend (``cross="dense"``).  Llama: the engines over phase
+    3c's requests with their frontend embeddings, then CoupledEngine on
+    the same weights over prompts of 64-2,000 (one past the 1,600
+    patches: a cross read with sq > skv).  Whisper: ``Cluster(runtime=
+    "engine", backend="dense")`` with 1 + 1 instances over phase 3l's
+    requests.  Kernel 5 launched causally n_layers x the dense prefill
+    calls and non-causally n_cross_layers x (prefill calls + decode
+    iterations); every bf16 launch on the tensor-core body, the first
+    chunk's cross reads on f32 (the unrounded cross K/V); wire bytes
+    ``kv_bytes`` with enc_len counted.  Returns (the Llama engines'
+    launches, CoupledEngine's, the Whisper Cluster's)."""
+    import torch
+    from repro_torch.core.backend import backend_for
+    from repro_torch.core.kv_transfer import kv_bytes
+    from repro_torch.models import model as M
+    from repro_torch.models.frontends import fake_frontend
+    from repro_torch.serving import Cluster
+    runs = []
+    cfg = vlm_cfg
+    spec = backend_for(cfg, "dense")
+    check((spec.cross, spec.cross_ctx, spec.n_cross_layers)
+          == ("dense", cfg.cross_ctx, cfg.n_cross_layers), f"phase 3q: "
+          f"{spec}")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(SEED), device)
+    enc = fake_frontend(cfg, N_REQUESTS, torch.Generator(device=device)
+                        .manual_seed(SEED + 1), device)
+    torch.cuda.synchronize()
+    L, nc = cfg.n_layers, cfg.n_cross_layers
+    print(f"phase 3q: {cfg.name}, {L} layers ({nc} with cross-attention "
+          f"over {cfg.cross_ctx} patches), full width, "
+          f"{count_params(params) / 1e9:.2f} G parameters in bf16, drawn in "
+          f"{time.perf_counter() - t0:.1f} s; dense backend")
+    with FiniteLogits() as finite:
+        launches, pe, de = serve_phase(
+            "3q", cfg, params, device, kernels, card, enc=enc,
+            hooks=(finite,), f32_reads=nc * N_REQUESTS, backend="dense",
+            n_pages=CROSS_PAGES)
+        calls = finite.prefill_calls
+    runs.append(launches)
+    n, n_nc, tc = kernel5_calls(launches)
+    only_kernel5("3q", launches, kernels)
+    check(n == (L + nc) * calls + nc * de.iterations
+          and n_nc == nc * (calls + de.iterations)
+          and tc == n - nc * N_REQUESTS, f"phase 3q: launches {launches}, "
+          f"{calls} prefill calls, {de.iterations} decode iterations")
+    reqs = make_requests(cfg.vocab_size)
+    wire = sum(kv_bytes(cfg, r.prompt_len, enc_len=cfg.cross_ctx)
+               for r in reqs)
+    check(pe.network.bytes_sent == wire, f"phase 3q: {pe.network.bytes_sent}"
+          f" wire bytes, expected {wire}")
+    print(f"phase 3q: {cfg.name} engines: kernel 5 launched {n}: causal "
+          f"{n - n_nc} = {L} x {calls} prefill calls, non-causal {n_nc} = "
+          f"{nc} x ({calls} + {de.iterations} decode iterations); {tc} on "
+          f"the tensor-core body, {n - tc} first-chunk cross reads in f32; "
+          f"{wire} wire bytes ({cfg.cross_ctx} encoder tokens a request "
+          f"counted)")
+    del pe, de
+    creqs = make_requests(cfg.vocab_size, lo=COUPLED_PROMPTS[0],
+                          hi=COUPLED_PROMPTS[1])
+    longest = max(r.prompt_len for r in creqs)
+    check(cfg.cross_ctx < longest <= SERVE["max_seq"] - NEW_TOKENS,
+          f"phase 3q: the longest prompt {longest} does not pass the "
+          f"{cfg.cross_ctx} patches inside max_seq")
+    _, c_launches, iters = coupled_run_phase("3q", cfg, params, creqs,
+                                             device, kernels, card)
+    runs.append(c_launches)
+    n, n_nc, tc = kernel5_calls(c_launches)
+    check(n == (L + nc) * len(creqs) + nc * iters
+          and n_nc == nc * (len(creqs) + iters), f"phase 3q: CoupledEngine "
+          f"launches {c_launches}, {iters} decode iterations")
+    print(f"phase 3q: CoupledEngine on {cfg.name}, prompts "
+          f"{sorted(r.prompt_len for r in creqs)} (the longest {longest} "
+          f"over {cfg.cross_ctx} encoder keys): kernel 5 causal {n - n_nc},"
+          f" non-causal {n_nc}, {tc} on the tensor-core body")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = wh_cfg
+    L, nc = cfg.n_layers, cfg.n_cross_layers
+    params = M.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(SEED), device)
+    wreqs = dedupe_requests(cfg, device)
+    cl = Cluster(cfg, runtime="engine", params=params, device=device,
+                 backend="dense", chunk_size=SERVE["chunk_size"],
+                 page_size=SERVE["page_size"], max_seq=SERVE["max_seq"],
+                 n_pages=CROSS_PAGES, max_batch=SERVE["max_slots"],
+                 n_prefill=1, n_decode=1)
+    zero_launches(kernels)
+    with FiniteLogits() as finite:
+        handles = [cl.submit(request=r) for r in wreqs]
+        cl.run()
+        calls = finite.prefill_calls
+    launches = read_launches(kernels)
+    runs.append(launches)
+    check_bodies("3q", launches, cfg.dtype, nc * len(wreqs))
+    only_kernel5("3q", launches, kernels)
+    iters = sum(i.de.iterations for i in cl.instances)
+    res = cl.result()
+    check(all(h.result().tokens and len(h.result().tokens) == NEW_TOKENS
+              for h in handles), "phase 3q: Whisper through Cluster: not "
+          "every request finished with its tokens")
+    check(all(i.pe.backend == i.de.backend == "dense"
+              for i in cl.instances), "phase 3q: not on the dense backend")
+    n, n_nc, tc = kernel5_calls(launches)
+    check(n == (L + nc) * calls + nc * iters and n_nc == nc * (calls + iters),
+          f"phase 3q: Whisper launches {launches}, {calls} prefill calls, "
+          f"{iters} decode iterations")
+    wire = sum(kv_bytes(cfg, r.prompt_len, enc_len=cfg.cross_ctx)
+               for r in wreqs)
+    check(cl.network.bytes_sent == wire, f"phase 3q: Whisper "
+          f"{cl.network.bytes_sent} wire bytes, expected {wire}")
+    prompt = sum(r.prompt_len for r in wreqs)
+    decoded = sum(len(h.result().tokens) - 1 for h in handles)
+    print(f"phase 3q: {cfg.name} whole through Cluster(runtime=\"engine\", "
+          f"backend=\"dense\"), 1 + 1 instances, {len(wreqs)} requests: "
+          f"kernel 5 causal {n - n_nc} = {L} x {calls} prefill calls, "
+          f"non-causal {n_nc} = {nc} x ({calls} + {iters}), {tc} on the "
+          f"tensor-core body; {wire} wire bytes; wall: prefill {prompt} "
+          f"tokens in {res.prefill_busy:.3f} s busy = "
+          f"{prompt / res.prefill_busy:.1f} tokens/s, decode {decoded} in "
+          f"{res.decode_busy:.3f} s busy = {decoded / res.decode_busy:.1f} "
+          f"tokens/s ({card})")
+    del cl, params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def dense_vs_paged(tag, cfg, gpu_params, cpu_params, reqs_fn, paged_gpu,
+                   device, paged_payloads=None, coupled=False):
+    """Phase 4h: ``cfg`` (f32) on the dense backend, on the card and on
+    the CPU, over ``reqs_fn()``'s requests: the two runs' greedy streams
+    identical, and identical to the paged backend's on the card
+    (``paged_gpu``); with the paged run's payloads (``paged_payloads``,
+    by rid) the dense payloads' ck / cv equal the paged cross pages
+    within CROSS_KV_TOL; with ``coupled``, ``CoupledEngine`` on the card
+    gives the same streams (it stops on decode_len and emits one token
+    more: its first len(stream) tokens are compared)."""
+    t0 = time.perf_counter()
+    payloads = {}
+
+    def watch(x):
+        if hasattr(x, "first_token"):        # a prefilled payload
+            payloads[x.req.rid] = x
+    outs = [serve(cfg, params, reqs_fn(), dev, backend="dense",
+                  watch=None if i else watch)[0]
+            for i, (dev, params) in enumerate(((device, gpu_params),
+                                               ("cpu", cpu_params)))]
+    check(len(outs[0]) == len(paged_gpu) and outs[0] == outs[1],
+          f"phase 4h: {cfg.name}: dense card and CPU streams differ")
+    check(outs[0] == paged_gpu, f"phase 4h: {cfg.name}: dense and paged "
+          "streams differ on the card")
+    if coupled:
+        from repro_torch.runtime.baseline_vllm import CoupledEngine
+        out_c = run_coupled(CoupledEngine(
+            cfg, gpu_params, max_slots=SERVE["max_slots"],
+            max_seq=SERVE["max_seq"], n_pages=SERVE["n_pages"],
+            page_size=SERVE["page_size"], device=device), reqs_fn())[0]
+        check(set(out_c) == set(outs[0]) and all(
+            out_c[rid][:len(t)] == t for rid, t in outs[0].items()),
+            f"phase 4h: {cfg.name}: CoupledEngine's streams differ from "
+            "the engines'")
+    err = 0.0
+    if paged_payloads:
+        kvh, hd, ec = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.cross_ctx
+        for rid, pkd in payloads.items():
+            pkp = paged_payloads[rid]
+            for name, pages in (("ck", pkp.cross_k), ("cv", pkp.cross_v)):
+                paged = pages.reshape(cfg.n_layers, -1, kvh, hd)
+                for i, layer in enumerate(pkd.cache):
+                    if name in layer:
+                        err = max(err, float((paged[i, :ec] - layer[name][0])
+                                             .abs().max()))
+        check(len(payloads) == len(paged_payloads) and err <= CROSS_KV_TOL,
+              f"phase 4h: {cfg.name}: dense ck / cv differ from the paged "
+              f"cross pages by {err}")
+    print(f"phase 4h: {tag} f32, dense backend: card and CPU {len(outs[0])} "
+          f"token streams identical, and identical to the paged backend's "
+          f"on the card" + (", and CoupledEngine's" if coupled else "")
+          + (f"; dense ck / cv vs paged cross pages max abs err {err:.3e}"
+             if paged_payloads else "")
+          + f", {time.perf_counter() - t0:.1f} s")
 
 
 # phase 5's rows, timed on the card by profile_rows once every row's
@@ -2878,8 +3284,16 @@ def main() -> int:
     # 2f: kernel 5 at the dense backend's served shapes (RecurrentGemma's
     # hd 256 / rep 16 windowed chunks, the coupled OPT-13B's prompts)
     errs["chunked_prefill_attention"] = max(
-        errs["chunked_prefill_attention"],
-        check_dense_served(device, kernels))
+        errs["chunked_prefill_attention"], check_dense_cases(
+            "2f", dense_served_shapes(get_config(RG_ARCH),
+                                      get_config(OPT_ARCH)),
+            device, kernels, SEED + 20))
+    # 2g: kernel 5 at the dense MLA prefill's widths (hd 192 / hd_v 128)
+    # and at the dense cross reads (non-causal, sq > skv included)
+    errs["chunked_prefill_attention"] = max(
+        errs["chunked_prefill_attention"], check_dense_cases(
+            "2g", mla_cross_shapes(ds_cfg, vlm_cfg, wh_cfg), device,
+            kernels, SEED + 23))
 
     # -- phase 3: serve full-width qwen2-0.5b in bf16 --------------------
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -2927,7 +3341,11 @@ def main() -> int:
           f"{spec.page_token_bytes} ({spec.token_width} bf16 scalars); "
           f"{pe.network.bytes_sent} bytes for {shipped} page-aligned "
           f"prompt tokens x {ds_cfg.n_layers} layers")
-    del params, pe, de
+    del pe, de
+    torch.cuda.empty_cache()
+    # -- phase 3p: the same weights on the dense backend, and coupled ----
+    mla_launches = mla_dense_phase(ds_cfg, params, device, kernels, card)
+    del params
     torch.cuda.empty_cache()
 
     # -- phase 3c: serve Llama-3.2-Vision-11B, full width and depth, bf16 -
@@ -2937,6 +3355,9 @@ def main() -> int:
     cross_serve_phase("3d", wh_cfg, device, kernels, card, WHISPER_PROMPTS)
     # -- phase 3l: Whisper's cross pages deduped by the prefix cache ------
     dedupe_phase(wh_cfg, device, kernels, card)
+    # -- phase 3q: Llama-3.2-Vision and Whisper on the dense backend -----
+    cross_launches = cross_dense_phase(vlm_cfg, wh_cfg, device, kernels,
+                                       card)
 
     # -- phases 3f-3h: the full-attention configs, bf16 -------------------
     opt_run, nemo_run, *more_runs = slice8_configs()
@@ -3161,6 +3582,43 @@ def main() -> int:
     print(f"phase 5: chunked_prefill_attention, {opt_cfg.name} whole "
           f"prompts (3o): {coupled_launches['chunked_prefill_attention']} "
           "launches in phase 3o's served run")
+    # kernel 5 on the dense MLA prefill (3p's chunks of 512 at
+    # MLA_CHUNKS, one request a call) and on the dense cross reads of 3q
+    # (Llama-3.2-Vision: a chunk of 512 and the 8 decode slots over
+    # 1,600 patches; Whisper: the same over 1,500 frames); the library
+    # call on the same dense K/V
+    sq, skv = SERVE["chunk_size"], SERVE["max_seq"]
+    time_kernel(
+        f"chunked_prefill_attention, {ds_cfg.name} dense MLA chunks (3p)",
+        [dense_case(mla_widths(ds_cfg), 1, sq, q0, skv, [q0 + sq], dtype,
+                    device, gen) for q0 in MLA_CHUNKS],
+        chunked_prefill_attention, ref.chunked_prefill_attention,
+        sdpa_dense_call, lambda a: dense_work(*a), dtype, card,
+        chunked_prefill_attention)
+    print(f"phase 5: chunked_prefill_attention, {ds_cfg.name} dense MLA "
+          f"chunks (3p): {mla_launches['chunked_prefill_attention']} "
+          "launches in phase 3p's served run (engines)")
+    engines, coupled, whisper = cross_launches
+    for c, served, how in ((vlm_cfg, engines, "engines"),
+                           (wh_cfg, whisper, "Cluster")):
+        ec = c.cross_ctx
+        for what, b, n_q in (("prefill", 1, sq),
+                             ("decode", SERVE["max_slots"], 1)):
+            time_kernel(
+                f"chunked_prefill_attention causal=False, {c.name} cross "
+                f"read, {what} (3q)",
+                [dense_case(gqa_widths(c), b, n_q, 0, ec, [ec] * b, dtype,
+                            device, gen)],
+                lambda *a: chunked_prefill_attention(*a, causal=False),
+                lambda *a: ref.chunked_prefill_attention(*a, causal=False),
+                lambda *a: sdpa_dense_call(*a, causal=False),
+                lambda a: dense_work(*a, causal=False), dtype, card,
+                chunked_prefill_attention)
+        print(f"phase 5: chunked_prefill_attention causal=False, {c.name}: "
+              f"{served['chunked_prefill_attention (causal=False)']} "
+              f"non-causal launches in phase 3q's served run ({how})"
+              + (f", {coupled['chunked_prefill_attention (causal=False)']} "
+                 "in its CoupledEngine run" if c is vlm_cfg else ""))
     # kernels 1 and 2 at OPT-13B's served shapes (rep 1) and windowed
     # Mistral-Nemo's (rep 4, the window's trimmed tables; its library
     # calls read the pre-gathered in-window K/V)

@@ -15,19 +15,17 @@ reference.  Layouts:
 VLM and encoder-decoder archs get ``cross="pages"`` on the paged
 backend: the encoder K/V of every cross layer lives in read-only pages
 of the same GQA pool, addressed by a second per-request block table,
-prefilled once and freed with the request.  A sliding-window config
+prefilled once and freed with the request.  On the dense backend they
+get ``cross="dense"``: the encoder K/V lives in the request's dense
+cache (``ck`` / ``cv``) and ships with it.  A sliding-window config
 pages too: ``window`` carries its window to the engines' allocators,
 which free the pages that slide wholly out of it.  ``auto`` picks paged
-wherever the config supports it and dense elsewhere.  The dense forms
-of MLA and of cross-attention (the reference's ``cross="dense"``) are
-not ported yet: asking for them raises ``NotImplementedError`` naming
-ROADMAP A.11b; nothing falls back quietly.
+wherever the config supports it and dense elsewhere.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
@@ -40,7 +38,7 @@ class BackendSpec:
     window: int             # sliding window in tokens (0 = unlimited)
     token_width: int        # pool scalars per token per layer
     page_token_bytes: int   # wire/pool bytes per token per layer
-    cross: str = "none"     # "none" | "pages"
+    cross: str = "none"     # "none" | "pages" | "dense"
     cross_ctx: int = 0      # encoder tokens each cross layer attends
     n_cross_layers: int = 0
 
@@ -62,21 +60,18 @@ def backend_for(cfg: ModelConfig, requested: str = "auto") -> BackendSpec:
                else "dense")
     dtype_bytes = 2 if cfg.dtype == "bfloat16" else 4
     if backend == "dense":
-        if cfg.mla is not None:
-            raise B.not_dense("MLA")
-        if cfg.n_cross_layers:
-            raise B.not_dense("cross-attention (cross=\"dense\")")
-        return BackendSpec(backend="dense", layout="dense",
-                           window=cfg.sliding_window, token_width=0,
-                           page_token_bytes=0)
-    if cfg.mla is not None:
+        layout, width = "dense", 0
+    elif cfg.mla is not None:
         layout = "latent"
         width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
     else:
         layout = "gqa"
         width = 2 * cfg.n_kv_heads * cfg.resolved_head_dim
-    cross = "pages" if cfg.n_cross_layers else "none"
-    return BackendSpec(backend="paged", layout=layout,
+    if not cfg.n_cross_layers:
+        cross = "none"
+    else:
+        cross = "pages" if backend == "paged" else "dense"
+    return BackendSpec(backend=backend, layout=layout,
                        window=cfg.sliding_window,
                        token_width=width,
                        page_token_bytes=width * dtype_bytes, cross=cross,

@@ -4,11 +4,14 @@ engine -> dispatcher.
 Execution backends (``core.backend.backend_for``):
 
   * ``paged`` (every uniform-attention arch) — see below.
-  * ``dense`` (the recurrent and hybrid archs) — each request gets a
-    batch=1 dense cache of ``max_seq`` positions at refill, and every
-    segment of a chunk runs its own ``model.prefill`` call against it
-    (local attention through kernel 5, the recurrent states carried
-    between chunks).  The finished request ships the cache itself
+  * ``dense`` (the recurrent and hybrid archs, or any arch on request)
+    — each request gets a batch=1 dense cache of ``max_seq`` positions
+    at refill, and every segment of a chunk runs its own
+    ``model.prefill`` call against it (attention through kernel 5, the
+    recurrent states carried between chunks).  A cross-attention
+    request's first segment also passes its frontend embeddings (zeros
+    without them), so the cross layers store the encoder K/V in the
+    cache.  The finished request ships the cache itself
     (``PrefilledKV.cache``); the prefix cache is a no-op there, as in
     the reference.
 
@@ -438,7 +441,10 @@ class PrefillEngine:
     def _step_dense(self, chunk: chunking.Chunk, now: float
                     ) -> List[PrefilledKV]:
         """One ``model.prefill`` call a segment, each against its
-        request's dense cache at the segment's start."""
+        request's dense cache at the segment's start; a cross-attention
+        request's first segment carries its frontend embeddings (f32, as
+        in the reference: zeros for a request without any, whose cross
+        output is then 0)."""
         finished: List[PrefilledKV] = []
         for seg in chunk.segments:
             req = self._reqs[seg.rid]
@@ -448,9 +454,16 @@ class PrefillEngine:
             if req.prompt_tokens is not None:
                 toks[0] = req.prompt_tokens[
                     seg.req_start: seg.req_start + seg.length]
+            enc = None
+            if self.enc_ctx and seg.req_start == 0:
+                enc = torch.zeros((1, self.enc_ctx, self.cfg.d_model),
+                                  dtype=torch.float32, device=self.device)
+                if req.enc_embeds is not None:
+                    enc[0].copy_(torch.as_tensor(req.enc_embeds))
             logits, self._caches[seg.rid] = M.prefill(
                 self.params, self.cfg, to_device(toks, self.device),
-                self._caches[seg.rid], q_offset=seg.req_start)
+                self._caches[seg.rid], q_offset=seg.req_start,
+                enc_embeds=enc)
             req.prefilled = seg.req_start + seg.length
             if req.prefilled >= req.prompt_len:
                 finished.append(self._finish_dense(req, logits, now))
@@ -460,7 +473,8 @@ class PrefillEngine:
                       ) -> PrefilledKV:
         n_chunks = self._note_finished(req, now)
         delay = self.network.send_kv(self.cfg, req.prompt_len,
-                                     n_chunks=n_chunks)
+                                     n_chunks=n_chunks,
+                                     enc_len=self.enc_ctx)
         req.phase = Phase.TRANSFER
         # the host copy of the argmax waits for the request's last chunk
         first_tok = int(torch.argmax(logits[0, -1]))
@@ -472,7 +486,8 @@ class PrefillEngine:
         self._reqs.pop(req.rid)
         return PrefilledKV(req=req, cache=cache, first_token=first_tok,
                            transfer_delay_s=delay, n_chunks=n_chunks,
-                           kv_len=req.prompt_len, ready=ready)
+                           kv_len=req.prompt_len, enc_len=self.enc_ctx,
+                           ready=ready)
 
     def _note_finished(self, req: Request, now: float) -> int:
         req.t_first_token = now     # chunked prefill emits the first token

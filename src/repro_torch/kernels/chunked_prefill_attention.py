@@ -3,16 +3,18 @@
 Replaces ``src/repro/kernels/chunked_prefill_attention.py``
 (``chunked_prefill_attention`` -> ``pl.pallas_call``): a chunk of
 ``sq`` queries of each request, all starting at one shared absolute
-position ``q_offset``, attends that request's dense K/V cache, causal,
-with an optional sliding window.
+position ``q_offset``, attends that request's dense K/V cache, causal
+with an optional sliding window, or non-causal (the dense
+cross-attention read: every query attends the kv_len encoder keys,
+however many queries there are).
 
 The kernel (``csrc/chunked_prefill_attention.cu``) runs one block per
 (request, KV head, q tile); the rep query heads of a KV head share each
 K/V tile the block reads, and the tiles walk only the live keys.  On an
 H100 the work is bound by its operations.  bf16 inputs run the
 tensor-core body it shares with the paged kernel (bf16 ``wgmma``,
-f32 sums; head widths 32, 64 and 128, or 256 for both K and V, any
-other raises ``ValueError``);
+f32 sums; head widths 32, 64 and 128, 256 for both K and V, or 192
+for K with 128 for V (MLA), any other raises ``ValueError``);
 f32 inputs run the CUDA-core body, since the tensor cores would take
 them as TF32 (about three decimal digits) and the f32 runs are held
 token-identical to the CPU.  ``prefill_plan.prefill_plan`` picks the
@@ -22,10 +24,12 @@ On a CPU tensor the wrapper runs the plain version
 (``ref.chunked_prefill_attention``); on a CUDA tensor it launches the
 kernel or raises.  ``chunked_prefill_attention.launches`` counts kernel
 launches, ``chunked_prefill_attention.tensor_core_launches`` those of
-them that ran the tensor-core body.  ``q_offset`` is a host int here:
-the reference passes the shared chunk start as a (1,) array, and
-``ops.prefill_attention`` reads it to the host once, so the wrapper can
-check it against the cache without a device sync.
+them that ran the tensor-core body, and
+``chunked_prefill_attention.noncausal_launches`` those with
+``causal=False`` (the dense cross-attention read).  ``q_offset`` is a
+host int here: the reference passes the shared chunk start as a (1,)
+array, and ``ops.prefill_attention`` reads it to the host once, so the
+wrapper can check it against the cache without a device sync.
 """
 from __future__ import annotations
 
@@ -58,12 +62,14 @@ def chunked_prefill_attention(q, k_cache, v_cache, kv_len, q_offset: int,
     """q: (b, sq, h, hd); k_cache: (b, skv, kvh, hd) and v_cache: (b, skv,
     kvh, hd_v) with the chunk already written at [q_offset, q_offset +
     sq); kv_len: (b,) int32 valid tokens after the write; q_offset: the
-    chunk's shared start, with q_offset + sq <= skv.
+    chunk's shared start, with q_offset + sq <= skv.  Non-causal
+    (``causal=False``, the cross read: q_offset 0, no window): the
+    queries need not lie in the cache, so sq may exceed skv.
     Returns (b, sq, h, hd_v) in q's dtype."""
     b, sq, h, hd = q.shape
     skv = k_cache.shape[1]
     q_offset = int(q_offset)
-    if q_offset < 0 or q_offset + sq > skv:
+    if q_offset < 0 or (causal and q_offset + sq > skv):
         raise ValueError(f"{NAME}: chunk [{q_offset}, {q_offset + sq}) "
                          f"outside a cache of {skv} positions")
     if q.device.type == "cpu":
@@ -110,9 +116,11 @@ def chunked_prefill_attention(q, k_cache, v_cache, kv_len, q_offset: int,
     build.raise_on_error(NAME, err)
     build.count(chunked_prefill_attention, "launches",
                 *(("tensor_core_launches",) if plan.body == TENSOR_CORE
-                  else ()))
+                  else ()),
+                *(() if causal else ("noncausal_launches",)))
     return out
 
 
 chunked_prefill_attention.launches = 0
 chunked_prefill_attention.tensor_core_launches = 0
+chunked_prefill_attention.noncausal_launches = 0

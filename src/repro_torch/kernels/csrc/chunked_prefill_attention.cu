@@ -6,7 +6,12 @@
 // q_offset, attends its request's dense cache (skv, kvh, hd) with the
 // chunk already written at [q_offset, q_offset + sq): keys k_pos <
 // kv_len[i], causal, with an optional sliding window.  hd_v (the V
-// cache's last dim) may differ from hd.
+// cache's last dim) may differ from hd.  Non-causal (causal = 0; the
+// dense cross-attention read of encoder K/V, at q_offset 0 and window
+// 0) sq may exceed skv: nothing below ties a query position to the
+// cache, since the live range [p_lo, p_hi) then has p_hi =
+// ceil(kv_len / page) and, without a window, p_lo = 0, the q tiles only
+// index the queries, and the key splits cut the live keys.
 //
 // Grid: (requests, KV heads, q tiles of block_q positions), as the paged
 // prefill kernel.  The block of (request i, KV head g, q tile) holds the
@@ -149,9 +154,9 @@ int launch_tc(const void* q, const void* k_cache, const void* v_cache,
 // q, k_cache, v_cache, kv_len, out, part (0: none), b, q_offset, sq, skv,
 // h, kvh, hd, hd_v, block_q, tile_tok, splits, window, causal, dtype.
 // dtype: 0 = float32 (the CUDA-core body, tile_tok keys a tile), 1 =
-// bfloat16 (the tensor-core body, hd and hd_v each 32, 64 or 128, or
-// both 256; tile_tok unused; with splits > 1 each block walks one of `splits`
-// shares of its keys and part, splits * b * sq * h * (hd_v + 2) floats,
+// bfloat16 (the tensor-core body, hd and hd_v each 32, 64 or 128, both
+// 256, or 192 with 128; tile_tok unused; with splits > 1 each block walks
+// one of `splits` shares of its keys and part, splits * b * sq * h * (hd_v + 2) floats,
 // takes the partial states a second launch combines).  q, caches and
 // out share the dtype.  Returns the cudaError_t of the launch (0 on
 // success).

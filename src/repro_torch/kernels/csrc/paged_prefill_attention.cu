@@ -148,7 +148,8 @@ int launch_tc(const void* q, const void* k_pool, const void* v_pool,
 // segs, sq, h, kvh, hd, hd_v, page, n_slots, block_q, tile_pages, splits,
 // window, causal, dtype.  dtype: 0 = float32 (the CUDA-core body;
 // tile_pages pages a K/V tile), 1 = bfloat16 (the tensor-core body, hd
-// and hd_v each 32, 64 or 128, or both 256; tile_pages unused; with
+// and hd_v each 32, 64 or 128, both 256, or 192 with 128; tile_pages
+// unused; with
 // splits > 1 each block walks one of `splits` shares of its keys and
 // part, splits * segs * sq * h * (hd_v + 2) floats, takes the partial
 // states a second launch combines).  q, pools and out share the dtype.

@@ -58,6 +58,22 @@
 // as a 128-wide one is two.  Shared memory: the Q rows (64 x 264 bf16,
 // 33 KB) and two stages of 64 keys x (256 + 256) bf16 (128 KB).
 //
+// Head widths hd 192, hd_v 128 (MLA decompressed for the dense prefill:
+// 128 nope + 64 RoPE key dims, 128 value dims; DeepSeek-V2 is then rep 1
+// over its 128 heads, 128-row blocks).  Swizzle: a 192-wide K row is
+// three 64-value chunk rows under the 128-byte swizzle, so the copy
+// warp's 24 pieces a key land at chunk rows kc = c / 8 of TILE keys, and
+// k-step kk's descriptor starts at chunk row kk * 16 / 64, byte (kk * 16
+// % 64) * 2 inside it, with the stride offset 8 * 128 of every width;
+// no descriptor crosses a chunk row, so the three chunks need nothing
+// the two of hd 128 do not.  Registers: the output tile at hd_v 128 is
+// 64 a thread, as at (128, 128); Q K^T is 12 k16 steps, read as 3
+// groups of 4 (16 registers of Q fragments, fewer than the 32 of hd
+// 128's one group of 8).  Shared memory at two warpgroups: the Q rows
+// 128 x (192 + 8) bf16 = 51,200 bytes, two stages of 64 keys x (192 +
+// 128) bf16 = 81,920, in 134,176 bytes with the alignment and the
+// barriers: one block an SM.
+//
 // Numerics: products are exact in the f32 accumulators and only the
 // summation order differs from attend; P is rounded to bf16 before PV
 // (at most 2^-9 of each weight).
@@ -675,8 +691,8 @@ inline int combine(const float* part, bf16* out, long long n_rows, int hd_v,
 }
 
 // Call f(std::integral_constant<int, HD>, std::integral_constant<int,
-// HD_V>) for an instantiated pair of head widths (32, 64 or 128 each, or
-// 256 with 256); cudaErrorInvalidValue for any other.
+// HD_V>) for an instantiated pair of head widths (32, 64 or 128 each,
+// 256 with 256, or 192 with 128); cudaErrorInvalidValue for any other.
 template <int HD, typename F>
 inline int with_hd_v(int hd_v, F&& f) {
   using HDc = std::integral_constant<int, HD>;
@@ -693,6 +709,11 @@ inline int with_widths(int hd, int hd_v, F&& f) {
     case 32: return with_hd_v<32>(hd_v, f);
     case 64: return with_hd_v<64>(hd_v, f);
     case 128: return with_hd_v<128>(hd_v, f);
+    case 192:
+      if (hd_v == 128)
+        return f(std::integral_constant<int, 192>{},
+                 std::integral_constant<int, 128>{});
+      break;
     case 256:
       if (hd_v == 256)
         return f(std::integral_constant<int, 256>{},

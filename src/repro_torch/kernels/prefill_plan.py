@@ -8,9 +8,11 @@ it without a card:
 
 - bf16 inputs run the tensor-core body (``csrc/prefill_attention_tc.cuh``:
   bf16 ``wgmma`` with f32 sums, a ``cp.async`` K/V ring).  It is
-  instantiated for head widths hd and hd_v of 32, 64 and 128, and for
-  hd = hd_v = 256 (RecurrentGemma's local attention); any other width
-  raises ``ValueError`` naming it, with no fallback.
+  instantiated for head widths hd and hd_v of 32, 64 and 128, for
+  hd = hd_v = 256 (RecurrentGemma's local attention) and for hd = 192
+  with hd_v = 128 (MLA decompressed for the dense prefill: 128 nope +
+  64 RoPE key dims, 128 value dims); any other width raises
+  ``ValueError`` naming it, with no fallback.
 - f32 inputs keep the CUDA-core body (``csrc/paged_attention.cuh``):
   the tensor cores would take f32 as TF32, about three decimal digits,
   and the f32 served runs are held token-identical to the CPU.  Its K/V
@@ -39,6 +41,7 @@ from repro_torch.kernels import build
 CUDA_CORE, TENSOR_CORE = "cuda_core", "tensor_core"
 TC_WIDTHS = (32, 64, 128)      # instantiated hd and hd_v of the bf16 body
 TC_WIDE = 256                  # also instantiated, as hd = hd_v = 256
+TC_MLA = (192, 128)            # and as (hd, hd_v): dense MLA prefill
 TILE_TOKENS = 64               # keys a K/V tile (both bodies)
 ROWS_SMALL, ROWS_BIG = 64, 128
 SPLIT_TILES = 4                # key tiles a split walks at the least
@@ -107,12 +110,13 @@ def prefill_plan(dtype, segs: int, sq: int, h: int, kvh: int, hd: int,
         plan = Plan(CUDA_CORE, block_q, rows, 256, 1, tile_pages, smem)
     elif str(dtype) == "torch.bfloat16":
         wide = hd == hd_v == TC_WIDE
-        if not wide and (hd not in TC_WIDTHS or hd_v not in TC_WIDTHS):
+        if not wide and (hd, hd_v) != TC_MLA and (
+                hd not in TC_WIDTHS or hd_v not in TC_WIDTHS):
             raise ValueError(
                 f"prefill attention: no tensor-core body for bf16 head "
                 f"width hd={hd}, hd_v={hd_v} (instantiated: "
-                f"{', '.join(map(str, TC_WIDTHS))} each, or both "
-                f"{TC_WIDE})")
+                f"{', '.join(map(str, TC_WIDTHS))} each, both "
+                f"{TC_WIDE}, or {TC_MLA[0]} with {TC_MLA[1]})")
         most = ROWS_SMALL if wide else ROWS_BIG
         if rep > most:
             raise ValueError(f"prefill attention: {rep} query heads a KV "

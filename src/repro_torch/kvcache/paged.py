@@ -664,6 +664,32 @@ class PagePool:
         return torch.as_tensor(np.asarray(pages, np.int64),
                                device=self.k.device)
 
+    def write_chunk(self, layer: int, pages, k_chunk, v_chunk
+                    ) -> "PagePool":
+        """Write a page-aligned chunk into one layer's pages, in place.
+        pages: (chunk // page,) physical ids; k_chunk/v_chunk: (chunk,
+        ...) with the pool's trailing dims (kvh, hd, or the latent's
+        width)."""
+        ps, idx = self.page_size, self._index(pages)
+        for pool, chunk in ((self.k, k_chunk), (self.v, v_chunk)):
+            chunk = torch.as_tensor(chunk).to(pool.device, pool.dtype)
+            pool[layer].index_copy_(
+                0, idx, chunk.reshape(-1, ps, *chunk.shape[1:]))
+        return self
+
+    def write_token(self, layer: int, page: int, offset: int, k_tok,
+                    v_tok) -> "PagePool":
+        """Write one token's K/V (the pool's trailing dims) at (page,
+        offset) of one layer, in place."""
+        for pool, tok in ((self.k, k_tok), (self.v, v_tok)):
+            pool[layer, page, offset] = torch.as_tensor(tok).to(
+                pool.device, pool.dtype)
+        return self
+
+    def layer(self, layer: int):
+        """One layer's (k, v) pages, views of the pools."""
+        return self.k[layer], self.v[layer]
+
     # -- serving-path transfer helpers ---------------------------------
     def gather(self, pages):
         """Extract the page contents for one request — what the prefill

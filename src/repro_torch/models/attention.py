@@ -2,8 +2,9 @@
 attention) projections, the prefill/decode attention against one
 layer's page pool, the cross-attention of VLM and encoder-decoder
 models against read-only cross pages of the same pool, and the dense
-backend's GQA prefill and decode against per-request caches (dense
-prefill through kernel 5, dense decode in torch ops, as the
+backend's GQA, MLA and cross-attention against per-request caches
+(every dense prefill read and the dense cross read in decode through
+kernel 5; the dense GQA and MLA decode in torch ops, as the
 reference's plain jnp).
 
 GQA attends through the CUDA kernels in ``kernels/ops.py`` in both
@@ -254,6 +255,84 @@ def mla_scale(cfg: ModelConfig) -> float:
     return (cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim) ** -0.5
 
 
+def mla_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+                *, q_offset: int = 0, window: int = 0):
+    """Dense MLA prefill chunk against the compressed-latent cache
+    {"ckv": (b, S, lora), "krope": (b, S, rope)}: the chunk's latent is
+    written at [q_offset, q_offset + s) in place, the written prefix is
+    decompressed through wkv_b into per-head K (nope ++ the shared RoPE
+    key, width qk_nope + qk_rope) and V (width v_head_dim), and the
+    chunk attends it through ``ops.prefill_attention``'s dense form,
+    kernel 5, causal, with kv_len = q_offset + s and the layer's window.
+
+    The kernel's scale, K's width to the -1/2, is MLA's (qk_nope +
+    qk_rope) ** -0.5.  The reference decompresses the whole cache of S
+    positions; this decompresses only the q_offset + s written ones,
+    which is the same function: kernel 5 reads no key at or past
+    kv_len.  Returns (attention output (b, s, d), cache)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    positions = q_offset + torch.arange(s, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_kv_latent(p, cfg, x, positions)
+    n = q_offset + s
+    cache["ckv"][:, q_offset:n] = c_kv
+    cache["krope"][:, q_offset:n] = k_rope
+    kvb = (cache["ckv"][:, :n] @ p["wkv_b"]).reshape(
+        b, n, h, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kvb.split([m.qk_nope_head_dim, m.v_head_dim], -1)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, cache["krope"][:, :n, None, :].expand(
+        b, n, h, m.qk_rope_head_dim)], -1)
+    kv_len = torch.full((b,), n, dtype=torch.int32, device=x.device)
+    out = ops.prefill_attention(q, k, v.contiguous(), kv_len, q_offset,
+                                window=window)
+    return out.reshape(b, s, -1) @ p["wo"], cache
+
+
+def mla_decode_attn(p: dict, cfg: ModelConfig, q_nope, q_rope, ckv, krope,
+                    pos, window: int = 0) -> torch.Tensor:
+    """Absorbed one-token MLA attention over the dense latent cache, in
+    f32: q_nope (b, 1, h, nope) absorbed through W_uk, scores against
+    every cache position at or below ``pos`` (b, 1) (and inside the
+    window), PV on the latent, W_uv on the way out.  ckv: (b, S, lora);
+    krope: (b, S, rope).  Returns (b, 1, h, v_head_dim) f32.  Plain torch
+    ops, as the reference's plain jnp (``mla_decode``)."""
+    w_uk, w_uv = _mla_absorb(p, cfg)
+    ckv = ckv.float()
+    q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope.float(), w_uk.float())
+    scores = torch.einsum("bqhl,bsl->bhqs", q_lat, ckv)
+    scores += torch.einsum("bqhr,bsr->bhqs", q_rope.float(), krope.float())
+    scores *= mla_scale(cfg)
+    idx = torch.arange(ckv.shape[1], device=ckv.device)[None, :]
+    valid = idx <= pos
+    if window:
+        valid = valid & (idx > pos - window)
+    scores.masked_fill_(~valid[:, None, None, :], ref.NEG_INF)
+    o_lat = torch.einsum("bhqs,bsl->bqhl", torch.softmax(scores, -1), ckv)
+    return torch.einsum("bqhl,lhv->bqhv", o_lat, w_uv.float())
+
+
+def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+               pos: int, *, window: int = 0):
+    """One-token MLA decode at a position ``pos`` (an int) shared by the
+    batch, against the dense latent cache: the token's latent is written
+    in place at min(pos, S - 1) (where the reference's dynamic update
+    clamps it), then ``mla_decode_attn``.  Returns (out (b, 1, d),
+    cache)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_kv_latent(p, cfg, x, positions)
+    slot = min(pos, cache["ckv"].shape[1] - 1)
+    cache["ckv"][:, slot:slot + 1] = c_kv
+    cache["krope"][:, slot:slot + 1] = k_rope
+    out = mla_decode_attn(p, cfg, q_nope, q_rope, cache["ckv"],
+                          cache["krope"], positions, window)
+    return out.reshape(b, 1, -1).to(x.dtype) @ p["wo"], cache
+
+
 def mla_prefill_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,
                       ckv_layer: torch.Tensor, kr_layer: torch.Tensor, *,
                       positions, q_offset, kv_len, block_tables,
@@ -389,6 +468,30 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     pattn = torch.softmax(scores * hd ** -0.5, dim=-1)
     out = torch.einsum("bgrqk,bkgd->bqgrd", pattn, v.float())
     return out.reshape(b, s, h, -1).to(q.dtype)
+
+
+def cross_forward(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Dense cross-attention sublayer: x (b, s, d) normed decoder
+    activations attend every one of the encoder K/V (b, enc, kvh, hd),
+    non-causally, through kernel 5 (``ops.prefill_attention``'s dense
+    form, q_offset 0, kv_len = enc for every request); s may exceed enc.
+
+    The reference's ``flash_attn`` computes in f32 whatever its inputs
+    and returns q's dtype; kernel 5 takes one dtype for q and K/V.  So
+    the queries run in the promoted type of q and K/V: on a request's
+    first chunk the K/V are the unrounded f32 ones ``cross_kv`` gives
+    for the f32 encoder output, and a bf16 model's queries are up-cast
+    (exactly) to run the f32 body; the output is cast back to q's
+    dtype.  Returns the attention output (b, s, d)."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.resolved_head_dim)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    kv_len = torch.full((b,), k.shape[1], dtype=torch.int32,
+                        device=x.device)
+    out = ops.prefill_attention(q.to(dt), k.to(dt), v.to(dt), kv_len, 0,
+                                causal=False)
+    return out.to(q.dtype).reshape(b, s, -1) @ p["wo"]
 
 
 def cross_attend_paged(p: dict, cfg: ModelConfig, x: torch.Tensor,

@@ -10,10 +10,10 @@ two modes:
   * "decode":  one token a request, per-request positions ``pos: (b,)``
 
 Dense caches are dicts of tensors, updated in place where the reference
-updates a K/V cache functionally (the chunk's or the token's K/V rows);
-a recurrent block's new state replaces its old tensors in the returned
-dict.  MLA and CROSS_ATTN blocks on the dense backend, and the "train"
-mode, are not ported yet (ROADMAP A.11b and A.13): they raise.
+updates a cache functionally (the chunk's or the token's K/V or MLA
+latent rows, a cross layer's encoder K/V); a recurrent block's new
+state replaces its old tensors in the returned dict.  The "train" mode
+is not ported yet (ROADMAP A.13): it raises.
 """
 from __future__ import annotations
 
@@ -35,11 +35,6 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
-
-
-def not_dense(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} on the dense backend is not ported yet (ROADMAP A.11b)")
 
 
 # ---------------------------------------------------------------------------
@@ -170,22 +165,33 @@ def init_block(ini: Init, kind: str, cfg: ModelConfig,
 # dense cache init (per block kind)
 # ---------------------------------------------------------------------------
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
-                     dtype, device, ring: bool = False) -> Dict[str, Any]:
-    """One layer's dense cache: K/V (batch, s, kvh, hd) for the
-    attention kinds, the recurrent state for the others.  ``ring=True``
-    gives windowed layers a ring buffer of ``window`` positions in place
-    of ``max_seq``: decode-only shapes; prefill needs the full length."""
-    if kind in (ATTN, LOCAL_ATTN):
-        if cfg.mla is not None:
-            raise not_dense("MLA")
+                     dtype, device, enc_ctx: int = 0,
+                     ring: bool = False) -> Dict[str, Any]:
+    """One layer's dense cache: for the attention kinds K/V (batch, s,
+    kvh, hd), or with MLA the compressed latent ``ckv`` (batch, s,
+    kv_lora_rank) and the RoPE key ``krope`` (batch, s, rope); a
+    CROSS_ATTN layer adds its encoder K/V ``ck`` / ``cv`` (batch,
+    enc_ctx, kvh, hd).  The recurrent state for the other kinds.
+    ``ring=True`` gives windowed layers a ring buffer of ``window``
+    positions in place of ``max_seq``: decode-only shapes; prefill needs
+    the full length."""
+    if kind in (ATTN, LOCAL_ATTN, CROSS_ATTN):
         window = cfg.local_window if kind == LOCAL_ATTN \
             else cfg.sliding_window
         s = min(max_seq, window) if (window and ring) else max_seq
-        shape = (batch, s, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
-    if kind == CROSS_ATTN:
-        raise not_dense("CROSS_ATTN")
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        if cfg.mla is not None:
+            c = {"ckv": zeros(batch, s, cfg.mla.kv_lora_rank),
+                 "krope": zeros(batch, s, cfg.mla.qk_rope_head_dim)}
+        else:
+            c = {"k": zeros(batch, s, kvh, hd), "v": zeros(batch, s, kvh, hd)}
+        if kind == CROSS_ATTN:
+            c["ck"] = zeros(batch, enc_ctx, kvh, hd)
+            c["cv"] = zeros(batch, enc_ctx, kvh, hd)
+        return c
     if kind == RGLRU:
         return R.rglru_init_state(cfg, batch, dtype, device)
     if kind == SLSTM:
@@ -200,33 +206,46 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
 # ---------------------------------------------------------------------------
 def apply_block(kind: str, p: Dict[str, Any], cfg: ModelConfig,
                 x: torch.Tensor, *, mode: str, cache: Dict[str, Any],
-                pos=None, q_offset: int = 0):
+                pos=None, q_offset: int = 0, enc=None):
     """One block on the dense backend.  ``mode`` "prefill": x (b, s, d)
     is the chunk at the shared absolute start ``q_offset`` (a host int);
-    "decode": x (b, 1, d) at per-request positions ``pos`` (b,).
+    "decode": x (b, 1, d) at per-request positions ``pos`` (b,).  A
+    CROSS_ATTN layer given ``enc`` (b, enc_ctx, d), the encoder output,
+    in a prefill projects it to its cross K/V, stores them in the
+    cache's dtype and attends the unrounded ones, as the reference does;
+    otherwise it attends the stored ``ck`` / ``cv``.
     Returns (x_out, new_cache)."""
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"mode {mode!r}: training comes with "
                                   "its slice (ROADMAP A.13)")
-    if kind in (ATTN, LOCAL_ATTN):
-        if cfg.mla is not None:
-            raise not_dense("MLA")
+    if kind in (ATTN, LOCAL_ATTN, CROSS_ATTN):
         window = cfg.local_window if kind == LOCAL_ATTN \
             else cfg.sliding_window
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        # the self-attention functions touch only their own leaves of
+        # the layer's cache (k / v, or ckv / krope), in place
         if mode == "prefill":
-            a, new_cache = A.gqa_prefill(p["attn"], cfg, h, cache,
-                                         q_offset=q_offset, window=window)
+            fn = A.mla_prefill if cfg.mla is not None else A.gqa_prefill
+            a, cache = fn(p["attn"], cfg, h, cache, q_offset=q_offset,
+                          window=window)
         else:
-            a, new_cache = _gqa_decode_batched(p["attn"], cfg, h, cache,
-                                               pos, window)
+            fn = (_mla_decode_batched if cfg.mla is not None
+                  else _gqa_decode_batched)
+            a, cache = fn(p["attn"], cfg, h, cache, pos, window)
         x = x + a
+        if kind == CROSS_ATTN:
+            hc = rms_norm(x, p["norm_c"], cfg.norm_eps)
+            if mode == "prefill" and enc is not None:
+                ck, cv = A.cross_kv(p["cross"], cfg, enc)
+                cache["ck"].copy_(ck)
+                cache["cv"].copy_(cv)
+            else:
+                ck, cv = cache["ck"], cache["cv"]
+            x = x + A.cross_forward(p["cross"], cfg, hc, ck, cv)
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
         if "moe" in p:
-            return x + MLP.moe_forward(p["moe"], cfg, h2)[0], new_cache
-        return x + MLP.mlp_forward(p["mlp"], cfg, h2), new_cache
-    if kind == CROSS_ATTN:
-        raise not_dense("CROSS_ATTN")
+            return x + MLP.moe_forward(p["moe"], cfg, h2)[0], cache
+        return x + MLP.mlp_forward(p["mlp"], cfg, h2), cache
     if kind == RGLRU:
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         fn = R.rglru_forward if mode == "prefill" else R.rglru_decode
@@ -265,3 +284,27 @@ def _gqa_decode_batched(p, cfg, x, cache, pos, window):
     out = A.decode_attn_batched(q, cache["k"], cache["v"], pos, window,
                                 ring)
     return out.reshape(b, 1, -1) @ p["wo"], cache
+
+
+def _mla_decode_batched(p, cfg, x, cache, pos, window):
+    """One-token MLA decode at per-request positions ``pos`` (b,) against
+    the dense latent cache, in absorbed form: the token's latent is
+    written in place at min(pos, S - 1), q_nope is absorbed through W_uk,
+    scores (q_lat . ckv + q_rope . krope) * scale over every position at
+    or below pos (and inside the window), PV on the latent, W_uv on the
+    way out; all in f32.
+
+    Plain torch ops, not a kernel's plain version: the reference's dense
+    MLA decode is plain jnp too, outside any Pallas kernel
+    (``blocks.py:_mla_decode_batched``)."""
+    b = x.shape[0]
+    positions = pos[:, None]
+    q_nope, q_rope = A._mla_q(p, cfg, x, positions)
+    c_kv, k_rope = A._mla_kv_latent(p, cfg, x, positions)
+    s_cache = cache["ckv"].shape[1]
+    slots = torch.clamp(pos, max=s_cache - 1)
+    _scatter_kv(cache["ckv"], c_kv, slots)
+    _scatter_kv(cache["krope"], k_rope, slots)
+    out = A.mla_decode_attn(p, cfg, q_nope, q_rope, cache["ckv"],
+                            cache["krope"], pos.long()[:, None], window)
+    return out.reshape(b, 1, -1).to(x.dtype) @ p["wo"], cache

@@ -44,8 +44,10 @@ sliding window (``cfg.sliding_window``) reaches every self-attention
 kernel; the engines' allocators free the pages that slid out of it.
 
 The dense cache is a list with one dict a layer, in the order of
-``layers``: {k, v} (b, S, kvh, hd) for ATTN / LOCAL_ATTN, the recurrent
-state for the others.  Training comes with its slice (ROADMAP A.13).
+``layers``: {k, v} (b, S, kvh, hd) for ATTN / LOCAL_ATTN, or with MLA
+{ckv (b, S, lora), krope (b, S, rope)}; a CROSS_ATTN layer adds its
+encoder K/V {ck, cv} (b, enc_ctx, kvh, hd); the recurrent state for the
+other kinds.  Training comes with its slice (ROADMAP A.13).
 """
 from __future__ import annotations
 
@@ -144,9 +146,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                ring: bool = False, device="cuda") -> List[Dict[str, Any]]:
     """The dense cache: one dict a layer, in execution order (prefix +
     body repeat-major + suffix, as ``params["layers"]``), each leaf with
-    the batch on dim 0, in the model's dtype."""
+    the batch on dim 0, in the model's dtype; cross layers hold the
+    encoder's n_ctx positions."""
+    enc_ctx = cfg.encoder.n_ctx if cfg.encoder is not None else 0
     return [B.init_block_cache(kind, cfg, batch, max_seq, torch_dtype(cfg),
-                               device, ring=ring)
+                               device, enc_ctx=enc_ctx, ring=ring)
             for kind in cfg.layer_kinds]
 
 
@@ -167,31 +171,36 @@ def cache_select(src_cache, slot: int):
 
 
 def _run_layers(params, cfg: ModelConfig, h, *, mode: str, caches,
-                pos=None, q_offset: int = 0):
+                pos=None, q_offset: int = 0, enc=None):
     new_caches = []
     for kind, p, c in zip(cfg.layer_kinds, params["layers"], caches):
         h, nc = B.apply_block(kind, p, cfg, h, mode=mode, cache=c, pos=pos,
-                              q_offset=q_offset)
+                              q_offset=q_offset, enc=enc)
         new_caches.append(nc)
     return h, new_caches
 
 
-def _no_encoder(enc_embeds) -> None:
-    if enc_embeds is not None:
-        raise B.not_dense("cross-attention")
+def _encode(params, cfg: ModelConfig, enc_embeds):
+    """What the cross layers attend: the encoder stack's output for an
+    encoder-decoder, the frontend embeddings themselves for a VLM."""
+    if enc_embeds is None or not cfg.is_encoder_decoder:
+        return enc_embeds
+    return encoder_forward(params, cfg, enc_embeds)
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, *, q_offset: int = 0,
             enc_embeds=None):
     """One dense prefill chunk.  tokens: (b, chunk) at the shared
-    absolute start ``q_offset`` (a host int).  Returns (logits of the
-    last position (b, 1, V), cache)."""
-    _no_encoder(enc_embeds)
+    absolute start ``q_offset`` (a host int); ``enc_embeds`` (b,
+    enc_ctx, d), the frontend embeddings, make the cross layers project
+    and store their encoder K/V (a request's first chunk).  Returns
+    (logits of the last position (b, 1, V), cache)."""
     b, s = tokens.shape
     positions = q_offset + torch.arange(s, device=tokens.device)[None, :]
     h = _embed(params, cfg, tokens, positions.expand(b, s))
     h, cache = _run_layers(params, cfg, h, mode="prefill", caches=cache,
-                           q_offset=q_offset)
+                           q_offset=q_offset,
+                           enc=_encode(params, cfg, enc_embeds))
     return _head(params, cfg, h[:, -1:]), cache
 
 
@@ -199,18 +208,20 @@ def prefill_chunked(params, cfg: ModelConfig, tokens, cache, *,
                     chunk_size: int, enc_embeds=None):
     """The paper's chunked prefill: fixed-size chunks in order.
     tokens: (b, S) with S % chunk_size == 0 (padded by the caller).
+    With ``enc_embeds`` the encoder runs once and every chunk's cross
+    layers project its output, as in the reference.
     Returns (logits of the last position (b, 1, V), cache)."""
-    _no_encoder(enc_embeds)
     b, s = tokens.shape
     if s % chunk_size:
         raise ValueError("pad prompts to a multiple of ChunkSize")
+    enc = _encode(params, cfg, enc_embeds)
     for start in range(0, s, chunk_size):
         chunk = tokens[:, start:start + chunk_size]
         positions = start + torch.arange(chunk_size,
                                          device=tokens.device)[None, :]
         h = _embed(params, cfg, chunk, positions.expand(b, chunk_size))
         h, cache = _run_layers(params, cfg, h, mode="prefill",
-                               caches=cache, q_offset=start)
+                               caches=cache, q_offset=start, enc=enc)
     return _head(params, cfg, h[:, -1:]), cache
 
 

@@ -298,8 +298,10 @@ def test_prefill_payload_matches_reference(setup):
 
 
 def test_backend_for_dense_matrix():
-    """``auto`` resolves the recurrent archs to dense, ``dense`` builds
-    for any GQA config, and dense MLA / cross raise naming A.11b."""
+    """``auto`` resolves the recurrent archs to dense, and ``dense``
+    builds for every config: GQA, MLA (layout "dense", no page width)
+    and the cross archs (``cross="dense"`` with the encoder's tokens and
+    the cross layers counted), as the reference's ``backend_for``."""
     for arch in ("recurrentgemma_9b", "xlstm_1_3b"):
         for requested in ("auto", "dense"):
             spec = backend_for(get_smoke_config(arch), requested)
@@ -309,13 +311,25 @@ def test_backend_for_dense_matrix():
             backend_for(get_smoke_config(arch), "paged")
     spec = backend_for(get_smoke_config("qwen2_0_5b"), "dense")
     assert (spec.backend, spec.page_token_bytes) == ("dense", 0)
+    from repro.core.backend import backend_for as ref_backend_for
+    from repro_torch.configs import get_config
     for arch in ("deepseek_v2_236b", "whisper_tiny",
                  "llama_3_2_vision_11b"):
-        with pytest.raises(NotImplementedError, match="A.11b"):
-            backend_for(get_smoke_config(arch), "dense")
+        for cfg in (get_smoke_config(arch), get_config(arch)):
+            spec = backend_for(cfg, "dense")
+            assert dataclasses.asdict(spec) == dataclasses.asdict(
+                ref_backend_for(cfg, "dense"))
+            assert (spec.backend, spec.layout, spec.token_width) \
+                == ("dense", "dense", 0)
+            assert spec.cross == ("dense" if cfg.n_cross_layers else "none")
+    vlm = backend_for(get_config("llama_3_2_vision_11b"), "dense")
+    assert (vlm.cross, vlm.cross_ctx, vlm.n_cross_layers) \
+        == ("dense", 1600, 8)
     ds = get_smoke_config("deepseek_v2_236b")
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        M.init_cache(ds, 1, 8, device="cpu")
+    layer = M.init_cache(ds, 1, 8, device="cpu")[0]
+    assert {k: tuple(v.shape) for k, v in layer.items()} == {
+        "ckv": (1, 8, ds.mla.kv_lora_rank),
+        "krope": (1, 8, ds.mla.qk_rope_head_dim)}
 
 
 # -- paged vs dense (tests/test_paged_path.py) ----------------------------

@@ -676,6 +676,90 @@ def test_cuda_prefill_wide_heads(dtype, b, sq, skv, q_off, kv_len, window,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,h,skv,q_off,kv_len,causal,split", [
+    # DeepSeek-V2's dense MLA prefill (hd 192 = 128 nope + 64 RoPE, hd_v
+    # 128, rep 1): one request's chunk of 512 at 512 over its 128 heads
+    # (one block an SM, no split), and a 16-head slice whose bf16 plan
+    # splits the keys; ragged kv_len with a 0 and garbage past it
+    (1, 512, 128, 2048, 512, [1024], True, False),
+    (3, 64, 16, 320, 200, [264, 0, 230], True, False),
+    (1, 512, 16, 2048, 1536, [2048], True, True),
+    # the dense cross read, non-causal: more queries than encoder keys
+    # (sq > skv), at MLA's widths and at Llama-3.2-Vision's below
+    (2, 300, 16, 200, 0, [200, 37], False, False),
+])
+def test_cuda_dense_prefill_mla_widths(dtype, b, sq, h, skv, q_off, kv_len,
+                                       causal, split):
+    """On the card: kernel 5 at hd 192 / hd_v 128 against its plain
+    version, bf16 on the tensor-core body's (192, 128) instantiation
+    (its keys split in shares where ``split``), f32 on the CUDA-core
+    body; cache positions at or past kv_len hold garbage that must not
+    be read; rows without an attendable key exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.chunked_prefill_attention import (
+        chunked_prefill_attention)
+    from repro_torch.kernels.prefill_plan import prefill_plan, sm_count
+    dev = torch.device("cuda")
+    tdt = getattr(torch, dtype)
+    plan = prefill_plan(tdt, b, sq, h, h, 192, 128, 1, skv, sm_count(dev))
+    assert (plan.splits > 1) == (split and dtype == "bfloat16")
+    rng = np.random.default_rng(46)
+    q = torch.from_numpy(_rand(rng, (b, sq, h, 192))).to(dev)
+    k = torch.from_numpy(_rand(rng, (b, skv, h, 192))).to(dev)
+    v = torch.from_numpy(_rand(rng, (b, skv, h, 128))).to(dev)
+    for i, n in enumerate(kv_len):
+        k[i, n:], v[i, n:] = 1e4, -1e4
+    q, k, v = q.to(tdt), k.to(tdt), v.to(tdt)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    before = (chunked_prefill_attention.launches,
+              chunked_prefill_attention.tensor_core_launches)
+    got = chunked_prefill_attention(q, k, v, lens, q_off, causal=causal)
+    exp = ref.chunked_prefill_attention(q, k, v, lens, q_off, causal=causal)
+    torch.cuda.synchronize()
+    assert (chunked_prefill_attention.launches,
+            chunked_prefill_attention.tensor_core_launches) == (
+        before[0] + 1, before[1] + (dtype == "bfloat16"))
+    assert got.dtype == tdt and got.shape == (b, sq, h, 128)
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - exp.float()).abs().max()) <= _limit(exp)
+    dead = ~torch.from_numpy(_attendable(kv_len, [q_off] * b, sq, 0,
+                                         causal)).to(dev)
+    assert float(got[dead].float().abs().sum()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq", [(1, 2000), (8, 1)])
+def test_cuda_dense_cross_read_more_queries_than_keys(dtype, b, sq):
+    """On the card: kernel 5 non-causal at Llama-3.2-Vision's cross
+    read (32 query heads over 8 KV heads of 128, 1,600 encoder keys):
+    a whole prompt of 2,000 tokens (sq > skv, as the coupled engine's
+    prefill gives it) and a decode step of 8 slots; a causal call of
+    the same shape is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.chunked_prefill_attention import (
+        chunked_prefill_attention)
+    dev = torch.device("cuda")
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(47)
+    q = torch.from_numpy(_rand(rng, (b, sq, 32, 128))).to(dev).to(tdt)
+    k, v = (torch.from_numpy(_rand(rng, (b, 1600, 8, 128))).to(dev).to(tdt)
+            for _ in range(2))
+    lens = torch.full((b,), 1600, dtype=torch.int32, device=dev)
+    got = chunked_prefill_attention(q, k, v, lens, 0, causal=False)
+    exp = ref.chunked_prefill_attention(q, k, v, lens, 0, causal=False)
+    torch.cuda.synchronize()
+    assert got.shape == (b, sq, 32, 128) and bool(torch.isfinite(got).all())
+    assert float((got.float() - exp.float()).abs().max()) <= _limit(exp)
+    if sq > 1600:
+        with pytest.raises(ValueError, match="outside a cache"):
+            chunked_prefill_attention(q, k, v, lens, 0)
+
+
+@pytest.mark.gpu
 def test_cuda_prefill_refuses_bf16_widths_without_a_body():
     """On the card: a bf16 call at a head width with no tensor-core
     instantiation raises, naming the width, and launches nothing; f32 at

@@ -3,6 +3,9 @@ which device body a call runs, how many query rows a block takes, and
 its shared memory, held on the CPU (``prefill_plan.prefill_plan`` is
 pure Python; the kernels themselves run only on the card).
 """
+import hashlib
+import itertools
+
 import pytest
 import torch
 
@@ -211,3 +214,77 @@ def test_f32_tile_halves_until_it_fits(page, tile_pages, rep):
     assert plan.smem <= build.MAX_SMEM
     assert prefill_plan(torch.float32, 1, 512, rep, 1, 128, 128, page,
                         4096).tile_pages == max(1, 64 // page)
+
+
+# DeepSeek-V2's dense MLA prefill: its 128 heads decompressed to K of
+# 192 (128 nope + 64 RoPE) and V of 128, rep 1
+SERVED_MLA = [
+    # one request's chunk of 512 (as the engine gives it) or four at
+    # once: 512 or 2,048 blocks of 128 rows, no split
+    ((1, 512, 128, 128, 192, 128, 1, 2048), (128, 128, 288, 2, 1)),
+    ((4, 512, 128, 128, 192, 128, 1, 2048), (128, 128, 288, 2, 1)),
+    # a short last chunk of 100: 128 blocks, one an SM, no split
+    ((1, 100, 128, 128, 192, 128, 1, 2048), (128, 128, 288, 2, 1)),
+    # a 16-head slice of the same widths (one card of eight under head
+    # sharding): 128 blocks of 64 rows leave SMs idle, so 3 key shares
+    ((1, 512, 16, 16, 192, 128, 1, 2048), (64, 64, 160, 2, 3)),
+]
+
+
+@pytest.mark.parametrize("shape,expect", SERVED_MLA)
+def test_rows_a_block_at_mla_widths(shape, expect):
+    """The (192, 128) instantiation: 128-row blocks where the grid fills
+    the card, two stages, and the shared memory of ``tc_smem``: at two
+    warpgroups the Q rows 128 x 200 bf16 (51,200 B) and two stages of
+    64 keys x 320 bf16 (81,920 B), 134,176 B in all."""
+    plan = prefill_plan(torch.bfloat16, *shape)
+    assert plan.body == TENSOR_CORE
+    assert (plan.block_q, plan.rows, plan.threads, plan.stages,
+            plan.splits) == expect
+    assert plan.smem == tc_smem(plan.threads // 32 - 1, 192, 128)
+    assert plan.smem <= build.MAX_SMEM
+    assert tc_smem(8, 192, 128) == 134_176
+    assert tc_smem(4, 192, 128) == 108_576
+
+
+def test_mla_widths_f32_and_their_neighbours():
+    """f32 at (192, 128) keeps the CUDA-core body with its 64-token
+    tile (182,016 B); in bf16 only the pair (192, 128) is instantiated:
+    192 with any other V width, or any K width with V 192, raises."""
+    plan = prefill_plan(torch.float32, 1, 512, 128, 128, 192, 128, 1, 2048)
+    assert (plan.body, plan.rows, plan.tile_pages) == (CUDA_CORE, 64, 64)
+    assert plan.smem == build.attend_smem(64, 192, 128, 64, 1) == 182_016
+    for hd, hd_v in ((192, 192), (192, 64), (128, 192), (192, 256)):
+        with pytest.raises(ValueError, match="192 with 128"):
+            prefill_plan(torch.bfloat16, 1, 64, 4, 4, hd, hd_v, 1, 64)
+
+
+def test_earlier_shapes_plan_as_before():
+    """Every shape of a grid over both dtypes, 1-8 segments, 1-2,000
+    queries, the served head layouts, widths 32-256 each, pages of 1
+    and 16, 1,600-4,096 keys and two SM counts plans as it did before
+    the (192, 128) pair was added (the digest of the plans, or of the
+    error each raised, over the 24,696 shapes other than bf16 at
+    (192, 128), as the plan gave them then)."""
+    widths = (32, 64, 128, 192, 256)
+    rows = []
+    for dtype, segs, sq, (h, kvh), hd, hd_v, page, n_keys in (
+            itertools.product(
+                (torch.float32, torch.bfloat16), (1, 4, 8),
+                (1, 64, 512, 2000),
+                ((4, 4), (14, 2), (16, 1), (32, 8), (40, 40), (128, 128),
+                 (6, 6)), widths, widths, (1, 16), (1600, 2048, 4096))):
+        if dtype == torch.bfloat16 and (hd, hd_v) == (192, 128):
+            continue
+        key = (str(dtype), segs, sq, h, kvh, hd, hd_v, page, n_keys, 132)
+        try:
+            got = tuple(vars(prefill_plan(dtype, *key[1:])).values())
+        except (ValueError, TypeError) as e:
+            got = type(e).__name__
+        rows.append(repr(key + (got,)))
+    assert len(rows) == 24_696
+    assert hashlib.sha256("\n".join(rows).encode()).hexdigest() == DIGEST
+
+
+DIGEST = ("cb4b3c68bd641a0f0835f2499cd87a968"
+          "b2e7e6678556084b47dda2c70f43ecf")

@@ -29,6 +29,7 @@ from repro_torch.core.kv_transfer import NetworkStack, kv_page_bytes  # noqa: E4
 from repro_torch.core.prefill_engine import PrefillEngine  # noqa: E402
 from repro_torch.kvcache.paged import (OutOfPages, PagedAllocator,  # noqa: E402
                                        PagePool)
+from repro_torch.models import model as M  # noqa: E402
 from repro_torch.params import from_reference  # noqa: E402
 from repro_torch.runtime.request import Request, SamplingParams  # noqa: E402
 
@@ -161,8 +162,8 @@ def test_prefill_page_backpressure(setup):
 def test_dense_backend_and_prefix_cache_raise(setup):
     """The dense backend builds for a GQA config (no pool, a slot cache
     on the decode side) and takes no prefix cache, as in the reference;
-    dense MLA raises naming ROADMAP A.11b.  The paged decode engine with
-    the prefix cache builds, its allocator caching."""
+    it builds for MLA too, with a latent slot cache.  The paged decode
+    engine with the prefix cache builds, its allocator caching."""
     cfg, _, params = setup
     pe = PrefillEngine("p", cfg, params, device="cpu", backend="dense",
                        prefix_cache=True)
@@ -176,8 +177,13 @@ def test_dense_backend_and_prefix_cache_raise(setup):
                                       cfg.resolved_head_dim)
     mla = dataclasses.replace(get_smoke_config("deepseek_v2_236b"),
                               dtype="float32")
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        PrefillEngine("p", mla, params, device="cpu", backend="dense")
+    mla_params = M.init_params(mla, torch.Generator().manual_seed(0),
+                               "cpu")
+    pe = PrefillEngine("p", mla, mla_params, device="cpu", backend="dense")
+    de = DecodeEngine("d", mla, mla_params, device="cpu", backend="dense",
+                      max_slots=2, max_seq=32)
+    assert pe.backend == de.backend == "dense" and not hasattr(pe, "pool")
+    assert de.cache[0]["ckv"].shape == (2, 32, mla.mla.kv_lora_rank)
     de = DecodeEngine("d", cfg, params, device="cpu", prefix_cache=True)
     assert de.prefix_cache and de.alloc.prefix_cache
 
@@ -305,3 +311,54 @@ def test_pool_copy_pages_matches_reference():
     pool_a.copy_pages([1, 6], [0, 3])
     assert np.array_equal(pool_a.k.numpy(), np.asarray(ref_a.k))
     assert np.array_equal(pool_a.v.numpy(), np.asarray(ref_a.v))
+
+
+def test_page_pool_write_chunk_token_layer_match_reference():
+    """Mirrors tests/test_paged_alloc.py:147 (GQA layout): write_chunk,
+    write_token and layer give the reference's pools byte for byte, in
+    place."""
+    k = np.arange(8 * 2 * 8, dtype=np.float32).reshape(8, 2, 8)
+    ref = RefPool.create(2, 8, 4, 2, 8, jnp.float32)
+    ref = ref.write_chunk(1, np.array([3, 5]), jnp.asarray(k),
+                          jnp.asarray(2 * k))
+    ref = ref.write_token(0, 2, 1, jnp.asarray(k[0]), jnp.asarray(k[1]))
+    pool = PagePool.create(2, 8, 4, 2, 8, torch.float32, device="cpu")
+    assert pool.write_chunk(1, np.array([3, 5]), torch.from_numpy(k),
+                            torch.from_numpy(2 * k)) is pool
+    assert pool.write_token(0, 2, 1, torch.from_numpy(k[0]),
+                            torch.from_numpy(k[1])) is pool
+    assert np.array_equal(pool.k.numpy(), np.asarray(ref.k))
+    assert np.array_equal(pool.v.numpy(), np.asarray(ref.v))
+    kl, vl = pool.layer(1)
+    assert np.array_equal(kl[3].reshape(-1).numpy(), k[:4].reshape(-1))
+    assert np.array_equal(vl[5].reshape(-1).numpy(), 2 * k[4:].reshape(-1))
+    kl0, _ = pool.layer(0)
+    assert np.array_equal(kl0[2, 1].numpy(), k[0])
+    kl0.zero_()                                  # a view of the pool
+    assert float(pool.k[0].abs().sum()) == 0.0
+
+
+def test_page_pool_latent_write_gather_install_match_reference():
+    """Mirrors tests/test_paged_alloc.py:130 (MLA latent layout): a
+    latent chunk written into pages, gathered and installed into a
+    second pool, bf16 included, equals the reference's."""
+    ckv = np.arange(8 * 16, dtype=np.float32).reshape(8, 16)
+    kr = np.arange(8 * 8, dtype=np.float32).reshape(8, 8)
+    for dtype, jdt in ((torch.float32, jnp.float32),
+                       (torch.bfloat16, jnp.bfloat16)):
+        ref = RefPool.create_latent(2, 8, 4, 16, 8, jdt).write_chunk(
+            1, np.array([2, 6]), jnp.asarray(ckv), jnp.asarray(kr))
+        pool = PagePool.create_latent(2, 8, 4, 16, 8, dtype, device="cpu")
+        pool.write_chunk(1, np.array([2, 6]), torch.from_numpy(ckv),
+                         torch.from_numpy(kr))
+        pk, pv = pool.gather([2, 6])
+        assert pk.shape == (2, 2, 4, 16) and pv.shape == (2, 2, 4, 8)
+        rk, rv = ref.gather([2, 6])
+        assert np.array_equal(pk.float().numpy(),
+                              np.asarray(rk.astype(jnp.float32)))
+        assert np.array_equal(pv.float().numpy(),
+                              np.asarray(rv.astype(jnp.float32)))
+        pool2 = PagePool.create_latent(2, 8, 4, 16, 8, dtype, device="cpu")
+        pool2.install([1, 3], pk, pv)
+        qk, qv = pool2.gather([1, 3])
+        assert torch.equal(qk, pk) and torch.equal(qv, pv)

@@ -126,8 +126,9 @@ def test_backend_for_window_matrix():
         assert (s.backend, s.layout) == ("dense", "dense"), dense_arch
     dense = backend_for(win, "dense")
     assert (dense.backend, dense.window) == ("dense", WINDOW)
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        backend_for(mla, "dense")
+    dense_mla = backend_for(mla, "dense")
+    assert (dense_mla.backend, dense_mla.layout, dense_mla.window) \
+        == ("dense", "dense", WINDOW)
     cfg = dataclasses.replace(win, dtype="float32")
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     pe = PrefillEngine("p", cfg, params, device="cpu", **KW)
