@@ -99,8 +99,18 @@ Phases, in order (any failure exits non-zero):
    whole through ``Cluster(runtime="engine", backend="dense")`` over
    3l's requests: kernel 5's causal and non-causal launches, the first
    chunk's cross reads on f32 (the unrounded cross K/V), wire bytes with
-   the encoder tokens counted.  Every kernel's launch counter is set to
-   0 just before each run and read just after it.
+   the encoder tokens counted.  3r: the cost-model runtime, host only
+   (no kernel): ``param_count`` of OPT-13B equal to the parameters 3f
+   held; ``CostModel(opt_13b, HardwareSpec.h100())``'s prediction for
+   3f's fused prefill calls and decode iterations (each call's tokens,
+   each iteration's slots and positions) beside 3f's measured seconds,
+   every prediction finite and positive, the ratios printed; the
+   ``serve_cluster`` comparison on the H100 spec at 128 requests a
+   workload (every request terminal, no page held); the ``mixed64``
+   scenario equal (``==``) to tests/golden_sim_metrics.json; and
+   ``run_fleet`` over 5,000 Poisson Mixed requests on 8 + 4 H100
+   instances (events/s, no page held).  Every kernel's launch counter is
+   set to 0 just before each run and read just after it.
 4. Device vs CPU in f32, once on the card (kernels) and once on the CPU
    (plain versions): qwen2-0.5b at 2 layers on the served requests (4),
    DeepSeek-V2 at 2 layers (dense prefix + 1 routed) on 2 short requests
@@ -147,6 +157,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -271,6 +282,11 @@ XLSTM_CHECK_CHUNK = 64
 MLA_CHUNKS = (0, 512, 1536)
 MLA_SLICE_HEADS = 16
 COUPLED_PROMPTS = (64, 2000)
+# phase 3r: the cost-model runtime's serve_cluster requests a workload,
+# and the fleet run's trace and instances
+SIM_REQUESTS = 128
+FLEET_TRACE = 5000
+FLEET_INSTANCES = dict(n_prefill=8, n_decode=4)
 COUPLED_LONG = 2000
 # phase 4h: f32 dense cross K/V against the paged cross pages (the same
 # f32 products on the same card)
@@ -2130,7 +2146,7 @@ def check_slice8_kernels(device):
 
 
 def full_attention_phase(tag, run, device, kernels, card, watch=None,
-                         then=None):
+                         then=None, stats=None):
     """Phases 3f-3h: ``run["cfg"]`` (one of slice8_configs) in bf16 with
     random weights from SEED, served through the engines over its
     requests (SERVE overridden by its ``over``).  Besides serve_phase's
@@ -2139,7 +2155,9 @@ def full_attention_phase(tag, run, device, kernels, card, watch=None,
     iterations, kernels 3-5 never; the wire carried Σ kv_page_bytes of
     the prompts (windowed for a windowed config).  ``then(params,
     tokens by rid)`` runs once the engines are freed, before the
-    weights are.  Returns (launches, wire bytes)."""
+    weights are.  ``stats``, a dict, takes serve_phase's stats, the
+    parameter count, the fused calls and the decode iterations.  Returns
+    (launches, wire bytes)."""
     import torch
     from repro_torch.core.kv_transfer import kv_page_bytes
     from repro_torch.models import model as M
@@ -2162,12 +2180,14 @@ def full_attention_phase(tag, run, device, kernels, card, watch=None,
           f"parameters in bf16, drawn in {time.perf_counter() - t0:.1f} s; "
           f"{len(reqs)} requests of {reqs[0].decode_len} new tokens, "
           f"prompts {lens}")
-    stats = {}
+    stats = {} if stats is None else stats
     launches, pe, de = serve_phase(
         tag, cfg, params, device, kernels, card,
         prompts=(rq["lo"], rq["hi"]), n=rq["n"], new=rq["new"],
         watch=watch, stats=stats, **run["over"])
     nl, fused, iters = cfg.n_layers, pe.fused_calls, de.iterations
+    stats.update(n_params=count_params(params), fused=fused,
+                 iterations=iters)
     check(launches["paged_prefill_attention"] == nl * fused > 0
           and launches["paged_decode_attention"] == nl * iters > 0
           and launches["paged_mla_decode_attention"] == 0
@@ -2632,6 +2652,121 @@ def run_coupled(eng, reqs, sync=lambda: None):
         if eng.done():
             break
     return out, t_pre, t_dec
+
+
+class DecodeSteps:
+    """A serve ``watch`` (phase 3f): each decode iteration's active
+    slots and the sum of their positions (prompt plus generated tokens:
+    what the iteration's queries attend), read after admission and
+    before the step, into ``stats["decode_steps"]``."""
+
+    def __init__(self, stats):
+        from repro_torch.core.decode_engine import DecodeEngine
+        self.engine = DecodeEngine
+        self.steps = stats.setdefault("decode_steps", [])
+
+    def __call__(self, x):
+        if isinstance(x, self.engine) and x.slots:
+            self.steps.append((len(x.slots), sum(
+                st.req.prompt_len + st.req.generated
+                for st in x.slots.values())))
+
+
+def prefill_call_tokens(reqs, chunk_size):
+    """The tokens of each fused prefill call of a served run: the
+    engine's scheduler order and chunk partition, as prefill_geometry
+    packs them."""
+    from repro_torch.core import chunking
+    from repro_torch.core.sched.prefill_scheduler import PrefillScheduler
+    sched = PrefillScheduler()
+    for r in reqs:
+        sched.add(r)
+    order = sched.next_batch(sched.sched_batch)
+    return [sum(seg.length for seg in chunk.segments)
+            for chunk in chunking.partition(
+                [(r.rid, r.prompt_len) for r in order], chunk_size)]
+
+
+def costmodel_phase(run, stats, card):
+    """Phase 3r: the cost-model runtime, on the host.  (a) ``param_count``
+    of 3f's config equals the parameters 3f held.  (b) ``CostModel(cfg,
+    HardwareSpec.h100())``'s prediction for 3f's fused prefill calls
+    (``prefill_time`` of each call's tokens) and decode iterations
+    (``decode_time`` of each iteration's slots and summed positions),
+    beside 3f's measured seconds; every prediction finite and positive,
+    the ratios a record with no threshold.  (c) The ``serve_cluster``
+    comparison on that cost model at SIM_REQUESTS a workload: every
+    request terminal, no page held.  (d) The ``mixed64`` golden scenario
+    equal (==) to tests/golden_sim_metrics.json.  (e) ``run_fleet`` over
+    FLEET_TRACE on an H100 FleetSpec of FLEET_INSTANCES: events/s, every
+    request terminal, no page held."""
+    from repro_torch import serve_cluster
+    from repro_torch.configs import get_config
+    from repro_torch.fleet import (FleetSpec, generate_trace, page_leaks,
+                                   run_fleet)
+    from repro_torch.models.model import param_count
+    from repro_torch.runtime.costmodel import CostModel, HardwareSpec
+    from repro_torch.runtime.request import TERMINAL_PHASES
+    from repro_torch.runtime.workload import generate
+    from repro_torch.serving import Cluster
+    t0 = time.perf_counter()
+    cfg = run["cfg"]
+    n = param_count(cfg)
+    check(n == stats["n_params"], f"phase 3r: param_count {n} != "
+          f"{stats['n_params']} parameters held by 3f")
+    cost = CostModel(cfg, HardwareSpec.h100(), n_params=n)
+    calls = prefill_call_tokens(make_requests(cfg.vocab_size, **run["run"]),
+                                SERVE["chunk_size"])
+    steps = stats["decode_steps"]
+    check(len(calls) == stats["fused"] and len(steps) == stats["iterations"],
+          f"phase 3r: {len(calls)} calls, {len(steps)} iterations against "
+          f"3f's {stats['fused']} and {stats['iterations']}")
+    pre = [cost.prefill_time(t) for t in calls]
+    dec = [cost.decode_time(b, c) for b, c in steps]
+    check(all(math.isfinite(x) and x > 0 for x in pre + dec),
+          "phase 3r: a prediction is not finite and positive")
+    p_pre, p_dec = sum(pre), sum(dec)
+    print(f"phase 3r: {cfg.name} param_count {n} = 3f's; "
+          f"CostModel(h100, mfu {cost.mfu}, mbu {cost.mbu}): prefill "
+          f"{len(calls)} calls of {calls} tokens predicted "
+          f"{p_pre:.4f} s, measured {stats['t_pre']:.4f} s, ratio "
+          f"{p_pre / stats['t_pre']:.3f}; decode {len(steps)} iterations "
+          f"of {min(b for b, _ in steps)}-{max(b for b, _ in steps)} "
+          f"slots predicted "
+          f"{p_dec:.4f} s, measured {stats['t_dec']:.4f} s, ratio "
+          f"{p_dec / stats['t_dec']:.3f} ({card})")
+    print(f"phase 3r: serve_cluster on {cost.hw.name}, {SIM_REQUESTS} "
+          f"requests a workload")
+    print(f"phase 3r: {serve_cluster.HEADER}")
+    for wl, ra, cluster, rb in serve_cluster.compare(cost, SIM_REQUESTS):
+        check(all(r.phase in TERMINAL_PHASES
+                  for r in ra.requests + rb.requests)
+              and page_leaks(cluster) == 0,
+              f"phase 3r: {wl}: a request not terminal or a page held")
+        print(f"phase 3r: {serve_cluster.row(wl, ra, rb)}")
+    golden = json.loads((ROOT / "tests" / "golden_sim_metrics.json")
+                        .read_text())["mixed64"]
+    opt = get_config(OPT_ARCH)
+    v100 = CostModel(opt, HardwareSpec.v100_tp2(), n_params=13_000_000_000)
+    r = Cluster(opt, runtime="sim", cost=v100, n_prefill=1,
+                n_decode=1).serve(generate("Mixed", 64, seed=1))
+    got = dict(metrics={k: r.metrics[k] for k in golden["metrics"]},
+               **{k: getattr(r, k) for k in golden if k != "metrics"})
+    check(got == golden, f"phase 3r: mixed64 {got} != golden {golden}")
+    print("phase 3r: mixed64 equal to tests/golden_sim_metrics.json "
+          "(==)")
+    trace = generate_trace("Mixed", FLEET_TRACE, process="poisson")
+    rep = run_fleet(trace, FleetSpec(hardware="h100", **FLEET_INSTANCES))
+    check(rep.finished + rep.failed == FLEET_TRACE,
+          f"phase 3r: fleet {rep.finished} + {rep.failed} of "
+          f"{FLEET_TRACE} terminal")
+    print(f"phase 3r: run_fleet {FLEET_TRACE} Poisson Mixed requests on "
+          f"{FLEET_INSTANCES['n_prefill']} + "
+          f"{FLEET_INSTANCES['n_decode']} h100 instances: {rep.events} "
+          f"events in {rep.wall_s} s = {rep.events_per_s} events/s, finished "
+          f"{rep.finished}, failed {rep.failed}, sim mean TTFT "
+          f"{rep.metrics['avg_ttft']:.4f} s, goodput {rep.goodput:.4f}, "
+          f"0 pages held; phase 3r {time.perf_counter() - t0:.1f} s")
 
 
 def coupled_phase(cfg, params, disagg, device, kernels, card):
@@ -3362,14 +3497,17 @@ def main() -> int:
     # -- phases 3f-3h: the full-attention configs, bf16 -------------------
     opt_run, nemo_run, *more_runs = slice8_configs()
     # -- phase 3o: CoupledEngine on 3f's weights, once 3f's pools are freed
-    coupled_launches = {}
+    coupled_launches, opt_stats = {}, {}
     full_attention_phase(
         "3f", opt_run, device, kernels, card,
+        watch=DecodeSteps(opt_stats), stats=opt_stats,
         then=lambda p, out: coupled_launches.update(coupled_phase(
             opt_run["cfg"], p, out, device, kernels, card)))
     windowed_phase(nemo_run, device, kernels, card)
     for run in more_runs:
         full_attention_phase("3h", run, device, kernels, card)
+    # -- phase 3r: the cost-model runtime against 3f, and at fleet scale --
+    costmodel_phase(opt_run, opt_stats, card)
     # -- phases 3m, 3n: RecurrentGemma-9B and xLSTM-1.3B whole, dense ----
     rg_launches = rg_phase(device, kernels, card)
     xlstm_phase(device, kernels, card)

@@ -1,8 +1,11 @@
-"""Serving launcher of the port: the real engines on a small model
-through the port's serving API (the ``--real`` and ``--wall-clock``
-paths of the reference's ``src/repro/launch/serve.py``, with its
-observability flags).
+"""Serving launcher of the port, the reference's
+``src/repro/launch/serve.py``: the cost-model runtime at paper scale
+(the default), or the real engines on a small model, through the port's
+serving API.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload Mixed \
+      --requests 128                        # cost model, host only
+  PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --no-flip
   PYTHONPATH=src python -m repro_torch.launch.serve --real   # the card
   PYTHONPATH=src python -m repro_torch.launch.serve --real --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --real \
@@ -10,22 +13,24 @@ observability flags).
   PYTHONPATH=src python -m repro_torch.launch.serve --real --wall-clock \
       --arrival-rate 20 --arrival-process poisson --requests 12
 
-``--wall-clock`` runs the wall-clock ``AsyncCluster`` (each instance on
-its own worker thread and, on the card, its own CUDA stream; overlapped
-KV transfer) driven open-loop from an arrival process, and reports
-TTFT/JCT in wall seconds.
+The default run serves ``--arch`` (OPT-13B unless asked) on
+``Cluster(runtime="sim")`` priced by ``CostModel(cfg, v100_tp2())``, on
+a virtual clock, and prints what the reference prints.  ``--real``
+serves the small f32 config of ``--arch`` (qwen2 unless asked) on the
+engines.  ``--wall-clock`` runs the wall-clock ``AsyncCluster`` (each
+instance on its own worker thread and, on the card, its own CUDA
+stream; overlapped KV transfer) driven open-loop from an arrival
+process, and reports TTFT/JCT in wall seconds.
 
 Observability (docs/observability.md): ``--trace-out t.json`` writes a
 Perfetto-loadable trace, ``--trace-jsonl t.jsonl`` the raw records,
 ``--metrics-out m.json`` a metrics-registry snapshot, and
-``--slo-ttft``/``--slo-tbt`` add SLO attainment to the summary.  The
-reference's cost-model run (the default without ``--real`` or
-``--wall-clock``) raises here: it comes with the sim slice (ROADMAP
-A.12).
+``--slo-ttft``/``--slo-tbt`` add SLO attainment to the summary.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 
 
@@ -91,7 +96,7 @@ def _run_real(args):
     from repro_torch.runtime.workload import generate
     from repro_torch.serving import Cluster
 
-    cfg = dataclasses.replace(get_smoke_config(args.arch),
+    cfg = dataclasses.replace(get_smoke_config(args.arch or "qwen2_0_5b"),
                               dtype="float32")
     print(f"model: {cfg.name}  layers={cfg.n_layers} d={cfg.d_model}")
     params = M.init_params(
@@ -134,7 +139,7 @@ def _run_wall_clock(args):
     from repro_torch.serving import (ArrivalSchedule, AsyncCluster,
                                      OpenLoopClient)
 
-    cfg = dataclasses.replace(get_smoke_config(args.arch),
+    cfg = dataclasses.replace(get_smoke_config(args.arch or "qwen2_0_5b"),
                               dtype="float32")
     print(f"model: {cfg.name}  layers={cfg.n_layers} d={cfg.d_model}")
     params = M.init_params(
@@ -180,15 +185,42 @@ def _run_wall_clock(args):
     _dump_obs(args, tracer, metrics)
 
 
+def _run_sim(args):
+    """The cost-model runtime at full size: ``args.arch`` priced on the
+    paper's testbed, with no ``n_params`` (the exact count), as the
+    reference's default run.  Host only."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.costmodel import CostModel, HardwareSpec
+    from repro_torch.runtime.workload import generate
+    from repro_torch.serving import Cluster
+
+    cfg = get_config(args.arch or "opt_13b")
+    cost = CostModel(cfg, HardwareSpec.v100_tp2())
+    reqs = generate(args.workload, args.requests, seed=0)
+    tracer, metrics, slo = _obs_from_args(args, clock="virtual")
+    r = Cluster(
+        cfg, runtime="sim", cost=cost,
+        n_prefill=args.n_prefill, n_decode=args.n_decode,
+        prefill_policy=args.prefill_policy,
+        decode_policy=args.decode_policy, dispatch_policy=args.dispatch,
+        max_batch=64, enable_flip=args.flip, flip_idle_s=1.0,
+        tracer=tracer, metrics=metrics,
+    ).serve(copy.deepcopy(reqs), slo=slo)
+    _print_result(args, r)
+    _dump_obs(args, tracer, metrics)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="Mixed",
                     choices=["LPLD", "LPHD", "HPLD", "HPHD", "Mixed"])
     ap.add_argument("--requests", type=int, default=128)
-    ap.add_argument("--arch", default="qwen2_0_5b",
-                    help="the model whose small f32 config --real and "
-                         "--wall-clock serve (e.g. recurrentgemma_9b, "
-                         "xlstm_1_3b on the dense backend)")
+    ap.add_argument("--arch", default=None,
+                    help="the model: full size on the cost model "
+                         "(default opt_13b); its small f32 config with "
+                         "--real and --wall-clock (default qwen2_0_5b; "
+                         "e.g. recurrentgemma_9b, xlstm_1_3b on the "
+                         "dense backend)")
     ap.add_argument("--prefill-policy", default="sjf",
                     choices=["fcfs", "sjf", "ljf"])
     ap.add_argument("--decode-policy", default="reserve-dynamic",
@@ -237,11 +269,10 @@ def main(argv=None):
     if args.wall_clock:
         _run_wall_clock(args)
         return
-    if not args.real:
-        raise NotImplementedError(
-            "the cost-model run (no --real) comes with the port's sim "
-            "slice, ROADMAP A.12")
-    _run_real(args)
+    if args.real:
+        _run_real(args)
+        return
+    _run_sim(args)
 
 
 if __name__ == "__main__":

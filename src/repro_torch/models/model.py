@@ -3,6 +3,8 @@
 Entry points (pure functions of (params, cfg, ...), except that the
 page pools and the dense K/V caches are updated in place):
   * ``init_params``       — random init on a device, from a generator
+  * ``param_count``       — the parameters ``init_params`` makes,
+                            counted on the meta device (no allocation)
   * ``paged_supported``   — whether the paged path runs a config (the
                             dense backend runs the others)
   * ``encoder_forward``   — the encoder-decoder models' bidirectional
@@ -76,7 +78,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``init_params`` (normal times the same scales, ones for norms, zeros
     for biases, a uniform for the RG-LRU's decay), drawn from
     ``generator`` — the same law, not the same numbers.  The generator
-    must live on ``device``."""
+    must live on ``device`` (``None`` on the meta device)."""
     cfg.validate()
     dtype = torch_dtype(cfg)
     ini = B.Init(generator, device, dtype)
@@ -101,6 +103,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                        for _ in range(cfg.encoder.n_layers)],
             "norm": ini.ones(d)}
     return params
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Parameters of ``cfg``: ``init_params``'s leaves built on the meta
+    device, so the shapes are the served ones and nothing is allocated
+    (DeepSeek-V2 counts 236 G).  Tied heads count once, the encoder
+    counts, and a classifier head (``n_classes``) counts as in the
+    reference's ``param_count``."""
+    def numel(x) -> int:
+        if isinstance(x, torch.Tensor):
+            return x.numel()
+        values = x.values() if isinstance(x, dict) else x
+        return sum(numel(v) for v in values)
+    return (numel(init_params(cfg, None, device="meta"))
+            + cfg.d_model * cfg.n_classes)
 
 
 # ---------------------------------------------------------------------------

@@ -11,15 +11,18 @@ and the KV-transfer events — and drives N instances through the narrow
   * ``runtime="engine"`` — ``EngineInstance``: the port's engines on
     ``device`` ("cuda" unless the caller asks for "cpu"), each facet
     with its own page pool; multi-instance serving of actual models.
-  * ``runtime="sim"``    — the reference's cost-model runtime; it comes
-    with the sim slice (ROADMAP A.12) and raises here.
+  * ``runtime="sim"``    — ``SimInstance``: analytic cost-model timing
+    (``runtime.costmodel``); cluster-scale workloads (OPT-13B, 128+
+    requests) in milliseconds, on the host only: it holds no tensor and
+    ignores ``device``.
 
 The event loop is the reference's (``src/repro/serving/cluster.py``),
-copied as it is: with the engine runtime's fixed virtual ``step_dt`` a
-step, the whole event sequence is a function of host logic and greedy
-tokens, so the port and the reference give the same streams,
-timestamps, placements, flips and transfer accounting on the same
-weights and requests.
+copied as it is.  On the sim runtime the port gives the reference's
+metrics bit for bit (tests/golden_sim_metrics.json); with the engine
+runtime's fixed virtual ``step_dt`` a step, the whole event sequence is
+a function of host logic and greedy tokens, so the port and the
+reference give the same streams, timestamps, placements, flips and
+transfer accounting on the same weights and requests.
 
 On top sits the user-facing request API: ``submit()`` returns a
 ``RequestHandle`` whose iterator streams tokens as they are generated
@@ -76,6 +79,7 @@ from repro_torch.serving.faults import (CORRUPT, CRASH, DELAY, DROP,
                                         RecoveryPolicy)
 from repro_torch.serving.engine_instance import EngineInstance
 from repro_torch.serving.runtime import InstanceRuntime, PrefillOutcome
+from repro_torch.serving.sim_instance import SimInstance
 
 _UNSET = object()
 
@@ -244,10 +248,6 @@ class Cluster:
                  metrics: Optional[MetricsRegistry] = None,
                  device="cuda"):
         assert runtime in ("sim", "engine"), runtime
-        if runtime == "sim":
-            raise NotImplementedError(
-                "runtime='sim' (the cost-model SimInstance) comes with the "
-                "port's sim and fleet slice, ROADMAP A.12")
         self.cfg = cfg
         self.runtime = runtime
         self.prefix_cache = prefix_cache
@@ -268,23 +268,41 @@ class Cluster:
         self.page_size = page_size
         self.max_seq = max_seq
 
-        assert params is not None, "engine runtime needs model params"
-        chunk_size = 16 if chunk_size is None else chunk_size
-        n_pages = 256 if n_pages is None else n_pages
-        max_batch = 8 if max_batch is None else max_batch
-        self.chunk_size = chunk_size
-        self.device = device
+        if runtime == "sim":
+            assert cost is not None, "sim runtime needs a CostModel"
+            chunk_size = 512 if chunk_size is None else chunk_size
+            n_pages = 4096 if n_pages is None else n_pages
+            max_batch = 64 if max_batch is None else max_batch
+            self.chunk_size = chunk_size
+            self.device = None          # host only: no tensor, no card
 
-        def mk(i, role):
-            return EngineInstance(
-                f"i{i}", role, cfg=cfg, params=params,
-                network=self.network,
-                prefill_policy=prefill_policy,
-                sched_batch=sched_batch, chunk_size=chunk_size,
-                decode_policy=decode_policy, max_slots=max_batch,
-                n_pages=n_pages, page_size=page_size,
-                max_seq=max_seq, backend=backend, step_dt=step_dt,
-                prefix_cache=prefix_cache, device=device)
+            def mk(i, role):
+                return SimInstance(
+                    f"i{i}", role, cfg=cfg, cost=cost,
+                    sched_policy=prefill_policy, sched_batch=sched_batch,
+                    chunk_size=chunk_size, decode_policy=decode_policy,
+                    n_pages=n_pages, page_size=page_size,
+                    max_batch=max_batch,
+                    co_run_predictor=co_run_predictor,
+                    prefix_cache=prefix_cache)
+        else:
+            assert params is not None, "engine runtime needs model params"
+            chunk_size = 16 if chunk_size is None else chunk_size
+            n_pages = 256 if n_pages is None else n_pages
+            max_batch = 8 if max_batch is None else max_batch
+            self.chunk_size = chunk_size
+            self.device = device
+
+            def mk(i, role):
+                return EngineInstance(
+                    f"i{i}", role, cfg=cfg, params=params,
+                    network=self.network,
+                    prefill_policy=prefill_policy,
+                    sched_batch=sched_batch, chunk_size=chunk_size,
+                    decode_policy=decode_policy, max_slots=max_batch,
+                    n_pages=n_pages, page_size=page_size,
+                    max_seq=max_seq, backend=backend, step_dt=step_dt,
+                    prefix_cache=prefix_cache, device=device)
 
         self.instances: List[InstanceRuntime] = \
             [mk(i, Role.PREFILL) for i in range(n_prefill)] \

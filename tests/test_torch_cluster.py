@@ -399,11 +399,15 @@ def prefix_cache_shared(S):
 
 
 def test_cluster_refuses_what_is_not_ported(apis):
-    """The sim runtime raises, naming its queue item, instead of quietly
-    degrading; ``prefix_cache=True`` gives the reference's record."""
+    """A sim Cluster without a cost model refuses to build with the
+    reference's assertion (the sim runtime itself is held against the
+    reference in tests/test_torch_sim.py); ``prefix_cache=True`` gives
+    the reference's record."""
     port = apis[1]
-    with pytest.raises(NotImplementedError, match="A.12"):
-        port.Cluster(None, runtime="sim")
+    for api in apis:
+        with pytest.raises(AssertionError,
+                           match="sim runtime needs a CostModel"):
+            api.Cluster(None, runtime="sim")
     got, want = prefix_cache_shared(port), prefix_cache_shared(apis[0])
     assert set(got) == set(want)
     for key in want:

@@ -1,7 +1,8 @@
 """The port's entry points on the CPU against the reference's:
 ``python -m repro_torch.quickstart --device cpu`` (``main``) against
-``examples/quickstart.py``, and ``python -m repro_torch.launch.serve
---real --device cpu`` against ``python -m repro.launch.serve --real``.
+``examples/quickstart.py``, ``python -m repro_torch.launch.serve
+--real --device cpu`` against ``python -m repro.launch.serve --real``,
+and the cost-model run of each (no ``--real``: the same lines).
 
 The quickstart runs on the reference's weights (``init_params`` from
 key 0, converted with ``params.from_reference``): it must print the
@@ -127,13 +128,19 @@ def _wall_summary(out):
 
 
 def test_serve_refuses_the_modes_not_ported(capsys, monkeypatch):
-    """The cost-model run (no ``--real``) raises, naming its queue item;
-    ``serve --real --wall-clock`` runs the wall-clock AsyncCluster and
-    prints the reference's summary lines."""
-    with pytest.raises(NotImplementedError, match="A.12"):
-        serve.main(["--device", "cpu"])
+    """Every mode now runs.  The cost-model run (no ``--real``) prints
+    the reference's summary, line for line; ``serve --real
+    --wall-clock`` runs the wall-clock AsyncCluster and prints the
+    reference's summary lines."""
     pytest.importorskip("jax")
     from repro.launch import serve as ref_serve
+    sim = ["--requests", "16", "--workload", "LPHD"]
+    monkeypatch.setattr(sys, "argv", ["serve", *sim])
+    ref_serve.main()
+    want = capsys.readouterr().out
+    serve.main([*sim, "--device", "cpu"])
+    assert capsys.readouterr().out == want
+    assert "workload=LPHD n=16" in want
     args = ["--real", "--wall-clock", "--requests", "8", "--n-prefill",
             "2", "--n-decode", "2"]
     monkeypatch.setattr(sys, "argv", ["serve", *args])
