@@ -7,7 +7,7 @@ Needs one NVIDIA Hopper card with CUDA, ``nvcc`` and the repository's
 ``src/`` beside this file; without a card it exits non-zero at once.
 Phases, in order (any failure exits non-zero):
 
-1. Build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc each, in parallel) and print the card's name and power
    limit.
 2. Each kernel against its plain PyTorch version on the same CUDA
@@ -48,8 +48,19 @@ Phases, in order (any failure exits non-zero):
    cross reads, non-causal (Llama-3.2-Vision's 32 / 8 heads of 128 over
    1,600 patches and Whisper's 6 / 6 of 64 over 1,500 frames: a chunk of
    512, the 8 decode slots, and a whole prompt of 2,000 over the 1,600
-   patches, sq > skv), f32 and bf16.  bf16 outputs are held to a limit
-   scaled by the plain output's magnitude (``limit``).
+   patches, sq > skv), f32 and bf16.  2h: kernel 5's backward
+   (``chunked_prefill_attention_bwd``) against its plain version at the
+   training shapes, f32 and bf16, on kernel 5's output: OPT-125M-cls at
+   3s's batch (64 x 256, 12 / 12 heads of 64), the 100m preset of
+   ``train_lm`` (12 / 4 heads of 64) at 128 and 4,096 positions,
+   RecurrentGemma's 16 / 1 heads of 256 with its 2,048 window, MLA's
+   (192, 128) and the non-causal cross read (32 / 8 heads of 128, 512
+   queries over 1,600 keys, one kv_len short): dq, dk, dv within
+   ``grad_limit`` (``limit``, in f32 relative to the largest gradient
+   past 1), rows no query or key reaches exactly 0; each case timed
+   beside its bound, the plain version and the library's backward.
+   bf16 outputs are held to a limit scaled by the plain output's
+   magnitude (``limit``).
    The prefill kernels (1 and 5) and the MLA decode kernel (3) run bf16
    on their tensor-core body and f32 on their CUDA-core body: 2d, 3-3i
    and 4-4e check it on the wrappers' ``tensor_core_launches``.
@@ -109,7 +120,18 @@ Phases, in order (any failure exits non-zero):
    workload (every request terminal, no page held); the ``mixed64``
    scenario equal (``==``) to tests/golden_sim_metrics.json; and
    ``run_fleet`` over 5,000 Poisson Mixed requests on 8 + 4 H100
-   instances (events/s, no page held).  Every kernel's launch counter is
+   instances (events/s, no page held).  3s: training.  Full-width
+   OPT-125M-cls (10 classes, f32) fine-tuned 40 steps with
+   ``make_cls_train_step`` on ``predictor_dataset(768)`` at batch 64:
+   every loss finite, kernel 5's forward launched 2 x 12 times a step
+   (the checkpointed layers run again) and its backward 12, a gradient
+   on every leaf the loss reaches; ms a step and the eval accuracy.  The
+   tuned model then serves as ``ModelPredictor`` in
+   ``Cluster(runtime="engine")`` for full-width qwen2-0.5b over 3e's
+   prompt lengths: every request with a predicted bucket, kernel 5
+   launched 12 times a call; the classifier's ms a call.  Then 5 steps
+   of ``train_lm``'s 100m preset at 8 x 128: ms a step and the peak of
+   allocated memory.  Every kernel's launch counter is
    set to 0 just before each run and read just after it.
 4. Device vs CPU in f32, once on the card (kernels) and once on the CPU
    (plain versions): qwen2-0.5b at 2 layers on the served requests (4),
@@ -135,7 +157,12 @@ Phases, in order (any failure exits non-zero):
    token-identical, first-chunk logits within tolerance.  4h: 4b's and
    4c's weights and requests on the dense backend, on the card and on
    the CPU: the same tokens as each other and as the paged backend's on
-   the card, and the dense ck / cv equal to the paged cross pages.
+   the card, and the dense ck / cv equal to the paged cross pages.  4i:
+   the training path: three train steps on the smoke configs of qwen2,
+   OPT-125M-cls (the classifier's step), DeepSeek-V2 (MLA, the MoE aux)
+   and Whisper (the encoder), losses within 1e-5 relative; one gradient
+   of full-width OPT-125M-cls at batch 4, loss and global gradient norm
+   within 1e-4.
 5. Numbers: prefill and decode tokens/s of the served runs, and each
    kernel's time at the served shapes beside its bound, its plain
    version and one PyTorch library call, measured with CUDA events
@@ -149,7 +176,8 @@ Phases, in order (any failure exits non-zero):
    3j again under the profiler: the card's idle share over the run and
    the share of its busy time in which two or more streams ran at once.
 
-The line before the last is the JSON kernel table; the last line is
+The line before the last is the JSON kernel table (kernel 5's backward
+with 3s's launches and 2h's times at 3s's shape, f32); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -212,7 +240,11 @@ SOURCES = {"paged_prefill_attention":
            "paged_cross_decode_attention":
            "src/repro/kernels/paged_cross_decode_attention.py:87",
            "chunked_prefill_attention":
-           "src/repro/kernels/chunked_prefill_attention.py:95"}
+           "src/repro/kernels/chunked_prefill_attention.py:95",
+           # the backward replaces JAX's autodiff of the reference's
+           # flash attention, which trains through no Pallas kernel
+           "chunked_prefill_attention_bwd":
+           "src/repro/models/attention.py:49"}
 # phase 2d / 5: the dense chunked prefill of 8 requests, a served chunk
 # of 512 queries at 512 in caches of max_seq; kv_len ragged: one empty
 # request, some ending inside the chunk or before it
@@ -291,6 +323,21 @@ COUPLED_LONG = 2000
 # phase 4h: f32 dense cross K/V against the paged cross pages (the same
 # f32 products on the same card)
 CROSS_KV_TOL = 1e-5
+# phases 2h, 3s, 4i: training.  OPT-125M-cls fine-tuned as
+# finetune_predictor does (granularity 200: 10 classes; batches of 64
+# prompts of up to 256 tokens), the 100m preset of train_lm at its
+# default batch, and the smoke configs held card against CPU (losses of
+# three steps to 1e-5 relative; full-width OPT-125M-cls's loss and
+# global gradient norm to 1e-4: f32 sums over 85 M weights in other
+# orders)
+CLS_ARCH = "opt_125m_cls"
+CLS_TRAIN = dict(granularity=200, n_data=768, batch=64, max_prompt=256,
+                 steps=40)
+LM_TRAIN = dict(batch=8, seq=128, steps=5)
+TRAIN_CHECK_ARCHS = ("qwen2_0_5b", "opt_125m_cls", "deepseek_v2_236b",
+                     "whisper_tiny")
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_FULL_RTOL = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -307,11 +354,25 @@ def limit(exp) -> float:
     return tol
 
 
-def compare(name, got, exp, worst):
-    """max |got - exp|, checked against limit(exp); ``worst`` (a dict of
-    [largest error, largest error / limit] by name) keeps the case's
-    numbers."""
-    err, tol = float((got.float() - exp.float()).abs().max()), limit(exp)
+def grad_limit(exp) -> float:
+    """``limit`` for a gradient: in f32 relative to the largest plain
+    gradient where that exceeds 1.  A gradient is a sum over up to
+    thousands of queries (dk, dv) or keys (dq), not a convex mix of V as
+    an attention output is, and reaches 10-20 at phase 2h's shapes; two
+    f32 computations of it (different dot-product orders in the
+    recomputed scores, exponentiated) then differ by a few parts in a
+    million of that magnitude."""
+    tol = limit(exp)
+    if str(exp.dtype) == "torch.float32":
+        tol *= max(1.0, float(exp.abs().max()))
+    return tol
+
+
+def compare(name, got, exp, worst, tol_of=limit):
+    """max |got - exp|, checked against tol_of(exp) (``limit``);
+    ``worst`` (a dict of [largest error, largest error / limit] by name)
+    keeps the case's numbers."""
+    err, tol = float((got.float() - exp.float()).abs().max()), tol_of(exp)
     check(err <= tol, f"{name} disagrees with its plain version in "
           f"{exp.dtype}: {err} > {tol}")
     w = worst.setdefault(name, [0.0, 0.0])
@@ -744,15 +805,14 @@ def dense_work(q, k_cache, v_cache, kv_len, q_off, window=0, causal=True):
     return nbytes, keys * h * 2 * (hd + hd_v)
 
 
-def sdpa_dense_call(q, k_cache, v_cache, kv_len, q_off, window=0,
-                    causal=True):
-    """One library call computing the dense prefill on the dense caches
-    (heads expanded to the query heads) with the boolean causal (unless
-    ``causal`` is false) and length mask; with a window, on the keys
-    from the first the chunk's first query may see, and the window in
-    the mask (a yardstick: the port never uses it)."""
+def sdpa_dense_inputs(q, k_cache, v_cache, kv_len, q_off, window=0,
+                      causal=True):
+    """(q, k, v, mask) for ``scaled_dot_product_attention`` computing the
+    dense prefill on the dense caches: heads first, K/V expanded to the
+    query heads, the boolean causal (unless ``causal`` is false) and
+    length mask; with a window, the keys from the first the chunk's
+    first query may see, and the window in the mask."""
     import torch
-    import torch.nn.functional as F
     b, sq, h, hd = q.shape
     lo = max(0, q_off - window + 1) if window else 0
     k_cache, v_cache = k_cache[:, lo:], v_cache[:, lo:]
@@ -766,8 +826,16 @@ def sdpa_dense_call(q, k_cache, v_cache, kv_len, q_off, window=0,
         mask = mask & (q_pos[None, :, None] >= k_pos[None, None, :])
     if window:
         mask = mask & (k_pos[None, None, :] > q_pos[None, :, None] - window)
-    mask = mask[:, None]
-    qt = q.permute(0, 2, 1, 3).contiguous()
+    return q.permute(0, 2, 1, 3).contiguous(), k, v, mask[:, None]
+
+
+def sdpa_dense_call(q, k_cache, v_cache, kv_len, q_off, window=0,
+                    causal=True):
+    """One library call computing the dense prefill on
+    ``sdpa_dense_inputs`` (a yardstick: the port never uses it)."""
+    import torch.nn.functional as F
+    qt, k, v, mask = sdpa_dense_inputs(q, k_cache, v_cache, kv_len, q_off,
+                                       window, causal)
     return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask)
 
 
@@ -3259,6 +3327,455 @@ def dense_vs_paged(tag, cfg, gpu_params, cpu_params, reqs_fn, paged_gpu,
           + f", {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# training: kernel 5's backward (2h), fine-tuning and serving the length
+# predictor (3s), the training path on the card against the CPU (4i)
+# ---------------------------------------------------------------------------
+def bwd_cases():
+    """Phase 2h's shapes, as (what, widths (h, kvh, hd, hd_v), window,
+    causal, b, sq, q_off, skv, kv_len): the training forms (q_offset 0,
+    kv_len = the sequence) of OPT-125M-cls at 3s's batch, the 100m
+    preset of ``train_lm`` at 128 and 4,096 positions, RecurrentGemma's
+    local attention (16 / 1 heads of 256, window 2,048), MLA's
+    decompressed (192, 128), and the cross read, non-causal, 512 queries
+    over 1,600 keys with one request's kv_len short (its key rows past it
+    must get 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.train_lm import preset_config
+    opt_cfg, lm = get_config(CLS_ARCH), preset_config("100m")
+    rg_cfg, ds_cfg, vlm_cfg = (get_config(RG_ARCH), get_config(DS_ARCH),
+                               get_config(VLM_ARCH))
+    b, s = CLS_TRAIN["batch"], CLS_TRAIN["max_prompt"]
+    ec = vlm_cfg.cross_ctx
+    return [
+        (f"{opt_cfg.name} (3s)", gqa_widths(opt_cfg), 0, True, b, s, 0, s,
+         [s] * b),
+        (f"{lm.name}, 128", gqa_widths(lm), 0, True, 8, 128, 0, 128,
+         [128] * 8),
+        (f"{lm.name}, 4096", gqa_widths(lm), 0, True, 2, 4096, 0, 4096,
+         [4096] * 2),
+        (f"{rg_cfg.name} local attention", gqa_widths(rg_cfg),
+         rg_cfg.local_window, True, 1, 4096, 0, 4096, [4096]),
+        (f"{ds_cfg.name} MLA", mla_widths(ds_cfg), 0, True, 1, 1024, 0,
+         1024, [1024]),
+        (f"{vlm_cfg.name} cross read", gqa_widths(vlm_cfg), 0, False, 2,
+         512, 0, ec, [ec, 1000])]
+
+
+def bwd_work(q, k, v, kv_len, q_off, window=0, causal=True):
+    """(bytes, FLOPs) of one backward: q, k, v, out and dout read once,
+    dq, dk and dv written once; the five products (Q K^T, dO V^T, P^T dO,
+    dS^T Q, dS K) over every (query head, key) pair the masks admit."""
+    es = q.element_size()
+    h, hd, hd_v = q.shape[2], q.shape[3], v.shape[3]
+    out = q.shape[0] * q.shape[1] * h * hd_v
+    nbytes = es * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out)
+    keys = int(dense_keys(q, kv_len, q_off, window, causal).sum())
+    return nbytes, keys * h * 2 * (3 * hd + 2 * hd_v)
+
+
+def sdpa_bwd_ms(q, k, v, kv_len, q_off, dout, window=0, causal=True):
+    """The library's time for the same gradient: one
+    ``scaled_dot_product_attention`` forward and backward on
+    ``sdpa_dense_inputs``, minus its forward alone (a yardstick: the port
+    never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt, mask = sdpa_dense_inputs(q, k, v, kv_len, q_off, window,
+                                         causal)
+    leaves = [t.requires_grad_(True) for t in (qt, kt, vt)]
+    go = dout.permute(0, 2, 1, 3).contiguous()
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), leaves, go)
+    return cuda_ms(fwd_bwd) - cuda_ms(fwd)
+
+
+def live_keys(q, kv_len, q_off, n_keys, window=0, causal=True):
+    """(b, sq, n_keys) bool on q's device: the keys each query row may
+    attend."""
+    import torch
+    q_pos = q_off + torch.arange(q.shape[1], device=q.device)[:, None]
+    k_pos = torch.arange(n_keys, device=q.device)[None, :]
+    m = k_pos[None] < kv_len.long()[:, None, None]
+    if causal:
+        m = m & (k_pos <= q_pos)[None]
+    if window:
+        m = m & (k_pos > q_pos - window)[None]
+    return m.expand(q.shape[0], q.shape[1], n_keys)
+
+
+def check_bwd_kernel(device, kernels, card):
+    """Phase 2h: kernel 5's backward against its plain version
+    (``ref.chunked_prefill_attention_bwd``) at ``bwd_cases``' shapes, f32
+    and bf16, on the output kernel 5 gives, caches of garbage past
+    kv_len: dq, dk and dv within ``grad_limit``, key rows no query reaches
+    (those past kv_len) and query rows without a key exactly 0, one
+    launch a call.  Each case timed: ms a launch (CUDA events), the
+    card's µs by the profiler, the bound, the plain version's ms and the
+    library's (``sdpa_bwd_ms``).  Returns (the largest error, the timing
+    row of 3s's OPT-125M case in f32, the shape 3s trains at)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chunked_prefill_attention import (
+        chunked_prefill_attention, chunked_prefill_attention_bwd)
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    name, worst_err, row = "chunked_prefill_attention_bwd", 0.0, None
+    for what, widths, window, causal, *shape in bwd_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, kv_len, q_off = dense_case(widths, *shape, dtype,
+                                                device, gen)
+            kw = dict(window=window, causal=causal)
+            out = chunked_prefill_attention(q, k, v, kv_len, q_off, **kw)
+            dout = torch.randn(out.shape, generator=gen,
+                               device=device).to(dtype)
+            args = (q, k, v, out, dout, kv_len, q_off)
+            zero_launches(kernels)
+            got = chunked_prefill_attention_bwd(*args, **kw)
+            torch.cuda.synchronize()
+            check(kernels[name].launches == 1,
+                  f"phase 2h: {what}: {kernels[name].launches} launches")
+            exp = ref.chunked_prefill_attention_bwd(*args, **kw)
+            worst = {}
+            for g, e, label in zip(got, exp, ("dq", "dk", "dv")):
+                check(bool(torch.isfinite(g).all()), f"phase 2h: {what} "
+                      f"{label} not finite")
+                compare(f"{name} {label}", g, e, worst, grad_limit)
+            live = live_keys(q, kv_len, q_off, k.shape[1], window, causal)
+            dead_q, dead_k = ~live.any(2), ~live.any(1)
+            zeros = (float(got[0][dead_q].float().abs().sum())
+                     + float(got[1][dead_k].float().abs().sum())
+                     + float(got[2][dead_k].float().abs().sum()))
+            check(zeros == 0.0, f"phase 2h: {what}: rows no query or key "
+                  f"reaches are not 0 ({zeros})")
+            err = max(e for e, _ in worst.values())
+            share = max(s for _, s in worst.values())
+            mags = "/".join(f"{float(e.float().abs().max()):.2f}"
+                            for e in exp)
+            worst_err = max(worst_err, err)
+            call = lambda a=args, kw=kw: chunked_prefill_attention_bwd(  # noqa: E731,E501
+                *a, **kw)
+            ms = cuda_ms(call)
+            host = host_us(call)
+            plain_ms = cuda_ms(lambda a=args, kw=kw:
+                               ref.chunked_prefill_attention_bwd(*a, **kw))
+            lib_ms = sdpa_bwd_ms(q, k, v, kv_len, q_off, dout, window,
+                                 causal)
+            nb, fl = bwd_work(q, k, v, kv_len, q_off, window, causal)
+            bnd, by = bound(nb, fl, dtype)
+            dev_us, via = device_us(call)
+            tm = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                      bound_ms=bnd, bound_by=by, body="cuda_core",
+                      tflops=fl / (ms * 1e9), host_us=host,
+                      device_us=dev_us, device_by=via)
+            h, kvh, hd, hd_v = widths
+            print(f"phase 2h: {name} vs plain, {what}, {dtype}, "
+                  f"{'causal' if causal else 'non-causal'}, "
+                  f"{q.shape[0]} x {q.shape[1]} queries of {h}/{kvh} heads "
+                  f"of {hd} (V {hd_v}) over {k.shape[1]} keys, kv_len "
+                  + (f"{shape[4]}" if len(set(shape[4])) > 1
+                     else f"{shape[4][0]} each")
+                  + f", window {window}: max abs err {err:.3e} "
+                  f"({share:.3f} of the limit; largest |dq|/|dk|/|dv| "
+                  f"{mags}), {int(dead_k.sum())} key "
+                  f"rows past every query exactly 0; {ms:.3f} ms a launch "
+                  f"({tm['tflops']:.1f} TFLOP/s of the five products), "
+                  f"device {dev_us:.1f} µs ({via}), host {host:.1f} µs, "
+                  f"bound {bnd:.4f} ms ({by}, {100 * bnd / ms:.1f}% of it), "
+                  f"plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+                  f"backward {lib_ms:.3f} ms ({card})")
+            if row is None and dtype == torch.float32:
+                row = tm
+            del args, q, k, v, out, dout, got, exp
+            torch.cuda.empty_cache()
+    return worst_err, row
+
+
+class TimedPredictor:
+    """A predictor whose ``predict_range`` calls are timed on the host
+    clock (each returns a host int, so the card has finished)."""
+
+    def __init__(self, pred):
+        self.pred, self.ms = pred, []
+
+    def predict_range(self, prompt_tokens, true_decode_len=0):
+        t0 = time.perf_counter()
+        out = self.pred.predict_range(prompt_tokens, true_decode_len)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def predictor_finetune(device, kernels, card):
+    """Phase 3s (i): full-width OPT-125M-cls (n_classes for granularity
+    200, f32) fine-tuned as ``finetune_predictor`` does, with
+    ``make_cls_train_step`` on ``predictor_dataset``: every loss finite,
+    kernel 5's forward launched 2 x n_layers times a step (the
+    checkpointed layers run again before their backward) and its
+    backward n_layers times, a gradient on every leaf the loss reaches
+    (all but ``final_norm``, which ``classify`` does not apply: exactly
+    0, as the reference's).  Returns (cfg, tuned params, the backward's
+    launches over the run)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as T
+    g = CLS_TRAIN["granularity"]
+    n_classes = max(2, 2048 // g)
+    cfg = dataclasses.replace(get_config(CLS_ARCH), n_classes=n_classes,
+                              dtype="float32")
+    L, steps = cfg.n_layers, CLS_TRAIN["steps"]
+    toks, lens, labels = D.predictor_dataset(
+        CLS_TRAIN["n_data"], vocab=cfg.vocab_size,
+        max_prompt=CLS_TRAIN["max_prompt"], granularity=g,
+        n_classes=n_classes, seed=0)
+    split = int(0.8 * len(toks))
+    params = M.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(SEED), device)
+    n_params = count_params(params)
+    # every leaf's gradient on one batch
+    bt, bl, by = (torch.as_tensor(a[:CLS_TRAIN["batch"]], device=device)
+                  for a in (toks, lens, labels))
+    grads, _ = T.grads_of(lambda p: T.cls_loss(p, cfg, bt, bl, by), params)
+    for path, gl in zip(leaf_names(params), O.leaves(grads)):
+        check(bool(torch.isfinite(gl).all()), f"phase 3s: {path}: a "
+              "gradient not finite")
+        nonzero = float(gl.abs().max()) > 0
+        check(nonzero == (path != "final_norm"), f"phase 3s: {path}: "
+              f"gradient {'non' if nonzero else ''}zero")
+    del grads
+    state = O.init(params)
+    step = T.make_cls_train_step(cfg, O.AdamWConfig(
+        lr=3e-3, warmup_steps=10, total_steps=steps, weight_decay=0.0))
+    it = D.batched((toks[:split], lens[:split], labels[:split]),
+                   CLS_TRAIN["batch"], seed=1)
+    losses, accs, step_ms, bwd_launches = [], [], [], 0
+    for i, (bt, bl, by) in zip(range(steps), it):
+        zero_launches(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss, acc = step(params, state, bt, bl, by)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        accs.append(float(acc))
+        fwd = kernels["chunked_prefill_attention"].launches
+        bwd = kernels["chunked_prefill_attention_bwd"].launches
+        check(fwd == 2 * L and bwd == L, f"phase 3s: step {i}: kernel 5 "
+              f"forward {fwd} (want {2 * L}), backward {bwd} (want {L})")
+        bwd_launches += bwd
+        check(math.isfinite(losses[-1]), f"phase 3s: step {i}: loss "
+              f"{losses[-1]}")
+    with torch.no_grad():
+        ev = M.classify(params, cfg, torch.as_tensor(toks[split:],
+                                                     device=device),
+                        torch.as_tensor(lens[split:], device=device))
+    acc = float((torch.argmax(ev, -1).cpu()
+                 == torch.as_tensor(labels[split:])).float().mean())
+    print(f"phase 3s: {cfg.name} full width ({L} layers, d {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {n_classes} classes, "
+          f"{n_params / 1e6:.1f} M parameters, f32), fine-tuned "
+          f"{steps} steps of {CLS_TRAIN['batch']} x "
+          f"{CLS_TRAIN['max_prompt']} tokens on predictor_dataset("
+          f"{CLS_TRAIN['n_data']}): loss {losses[0]:.3f} -> "
+          f"{losses[-1]:.3f}, train acc {accs[-1]:.2f}, eval bucket "
+          f"accuracy {100 * acc:.1f}% (chance {100 / n_classes:.1f}%) on "
+          f"{len(toks) - split}; kernel 5 {2 * L} forward + {L} backward "
+          f"launches a step; {np.mean(step_ms[1:]):.1f} ms a step (mean "
+          f"of steps 2-{steps}; first {step_ms[0]:.1f} ms) ({card})")
+    return cfg, params, bwd_launches
+
+
+def leaf_names(tree, prefix=""):
+    """Dotted paths of a params tree's leaves, in ``leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in leaf_names(v, f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def predictor_serve(cls_cfg, cls_params, device, kernels, card):
+    """Phase 3s (ii): the tuned classifier as ``ModelPredictor`` in
+    ``Cluster(runtime="engine")`` serving full-width qwen2-0.5b (bf16, 2
+    + 2 instances) over 3e's prompt lengths, their tokens drawn below
+    the classifier's vocabulary so both models read them: every request
+    finished with a predicted bucket >= 0, kernel 5 launched n_layers
+    times a predictor call (f32, the CUDA-core body), no backward.
+    Prints the classifier's ms a call (§3.3.2's parallel mode)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.predictor import ModelPredictor
+    from repro_torch.models import model as M
+    from repro_torch.serving import Cluster, SamplingParams
+    cfg = get_config("qwen2_0_5b")
+    params = M.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(SEED), device)
+    pred = TimedPredictor(ModelPredictor(
+        cls_cfg, cls_params, granularity=CLS_TRAIN["granularity"]))
+    reqs = make_requests(min(cfg.vocab_size, cls_cfg.vocab_size))
+    cl = Cluster(cfg, runtime="engine", params=params, device=device,
+                 predictor=pred, chunk_size=SERVE["chunk_size"],
+                 page_size=SERVE["page_size"], max_seq=SERVE["max_seq"],
+                 n_pages=SERVE["n_pages"], max_batch=SERVE["max_slots"],
+                 **CLUSTER)
+    zero_launches(kernels)
+    handles = [cl.submit(r.prompt_tokens, sampling=SamplingParams(
+        max_new_tokens=NEW_TOKENS)) for r in reqs]
+    cl.run()
+    launches = read_launches(kernels)
+    buckets = [cl._reqs[h.rid].predicted_bucket for h in handles]
+    check(all(len(h.result().tokens) == NEW_TOKENS for h in handles),
+          "phase 3s: not every request finished with its tokens")
+    check(all(b >= 0 for b in buckets) and len(pred.ms) == len(handles),
+          f"phase 3s: buckets {buckets}, {len(pred.ms)} predictor calls")
+    k5 = launches["chunked_prefill_attention"]
+    check(k5 == cls_cfg.n_layers * len(pred.ms)
+          and launches["chunked_prefill_attention (tensor cores)"] == 0
+          and launches["chunked_prefill_attention_bwd"] == 0
+          and launches["paged_prefill_attention"] > 0,
+          f"phase 3s: launches {launches}")
+    print(f"phase 3s: {cfg.name} through Cluster(runtime=\"engine\", "
+          f"predictor=ModelPredictor({cls_cfg.name})), {len(handles)} "
+          f"requests of {sorted(len(r.prompt_tokens) for r in reqs)} "
+          f"tokens: predicted buckets {buckets}; kernel 5 {k5} launches "
+          f"= {cls_cfg.n_layers} x {len(pred.ms)} predictor calls; "
+          f"classifier {np.mean(pred.ms):.2f} ms a call (min "
+          f"{min(pred.ms):.2f}, max {max(pred.ms):.2f}, host clock) "
+          f"({card})")
+    del cl, params
+    torch.cuda.empty_cache()
+
+
+def lm_100m_phase(device, kernels, card):
+    """Phase 3s (iii): a few steps of ``train_lm``'s 100m preset (12
+    layers, d 768, 12 / 4 heads, vocab 32,768, f32) at its default batch
+    of 8 x 128: losses finite, kernel 5 launched 2 x 12 forward and 12
+    backward a step; ms a step and the peak of allocated memory."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as T
+    from repro_torch.train_lm import preset_config
+    cfg = preset_config("100m")
+    steps, L = LM_TRAIN["steps"], cfg.n_layers
+    params = M.init_params(cfg, torch.Generator(device=device)
+                           .manual_seed(SEED), device)
+    state = O.init(params)
+    step = T.make_train_step(cfg, O.AdamWConfig(lr=1e-3, warmup_steps=20,
+                                                total_steps=200))
+    stream = D.lm_batches(cfg.vocab_size, LM_TRAIN["batch"],
+                          LM_TRAIN["seq"], seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for i, (toks, labels) in zip(range(steps), stream):
+        zero_launches(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, toks, labels)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        fwd = kernels["chunked_prefill_attention"].launches
+        bwd = kernels["chunked_prefill_attention_bwd"].launches
+        check(fwd == 2 * L and bwd == L and math.isfinite(losses[-1]),
+              f"phase 3s: {cfg.name} step {i}: loss {losses[-1]}, kernel "
+              f"5 forward {fwd}, backward {bwd}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase 3s: {cfg.name} ({M.param_count(cfg) / 1e6:.1f} M "
+          f"parameters, f32), {steps} steps of {LM_TRAIN['batch']} x "
+          f"{LM_TRAIN['seq']}: loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
+          f"{np.mean(ms[1:]):.1f} ms a step (mean of steps 2-{steps}; "
+          f"first {ms[0]:.1f} ms); peak allocated {peak:.2f} GiB ({card})")
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def train_vs_cpu(device):
+    """Phase 4i: the training path on the card against the CPU, f32.
+    Three train steps on the smoke configs of qwen2 (``make_train_step``),
+    OPT-125M-cls (``make_cls_train_step``), DeepSeek-V2 (MLA and the MoE
+    aux) and Whisper (the encoder), from the same weights and batches on
+    each side: the losses within TRAIN_LOSS_RTOL.  One gradient of
+    full-width OPT-125M-cls at batch 4: the loss and the global gradient
+    norm within TRAIN_FULL_RTOL."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as T
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 50)
+    report = []
+    for arch in TRAIN_CHECK_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        cpu_p = M.init_params(cfg, torch.Generator().manual_seed(SEED + 51),
+                              "cpu")
+        runs = []
+        if cfg.n_classes:
+            toks, lens, labels = D.predictor_dataset(
+                24, vocab=cfg.vocab_size, max_prompt=64,
+                n_classes=cfg.n_classes, seed=SEED)
+            batches = [(toks[i:i + 8], lens[i:i + 8], labels[i:i + 8])
+                       for i in range(0, 24, 8)]
+            make = lambda: T.make_cls_train_step(cfg)  # noqa: E731
+        else:
+            enc = None if cfg.encoder is None else (
+                rng.standard_normal((4, cfg.encoder.n_ctx, cfg.d_model))
+                * 0.02).astype(np.float32)
+            batches = [b + ((enc,) if enc is not None else ())
+                       for _, b in zip(range(3), D.lm_batches(
+                           cfg.vocab_size, 4, 32, seed=SEED))]
+            make = lambda: T.make_train_step(  # noqa: E731
+                cfg, O.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=3),
+                has_encoder=cfg.encoder is not None)
+        # a copy for the card (a real one even on a CPU rehearsal: the
+        # steps update the weights in place)
+        for params in (O.tree_map(lambda t: t.clone().to(device), cpu_p),
+                       cpu_p):
+            state, step, losses = O.init(params), make(), []
+            for b in batches:
+                params, state, loss, *_ = step(params, state, *b)
+                losses.append(float(loss))
+            runs.append(losses)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(*runs))
+        check(rel <= TRAIN_LOSS_RTOL, f"phase 4i: {arch}: card losses "
+              f"{runs[0]}, CPU {runs[1]}")
+        report.append(f"{cfg.name} {rel:.1e}")
+    cfg = dataclasses.replace(get_config(CLS_ARCH), dtype="float32",
+                              n_classes=max(2, 2048 //
+                                            CLS_TRAIN["granularity"]))
+    cpu_p = M.init_params(cfg, torch.Generator().manual_seed(SEED + 52),
+                          "cpu")
+    toks, lens, labels = D.predictor_dataset(
+        4, vocab=cfg.vocab_size, max_prompt=CLS_TRAIN["max_prompt"],
+        n_classes=cfg.n_classes, seed=SEED + 1)
+    got = []
+    for dev, params in ((device, to_device(cpu_p, device)), ("cpu", cpu_p)):
+        args = [torch.as_tensor(a, device=dev) for a in (toks, lens, labels)]
+        g, (loss, _) = T.grads_of(lambda p: T.cls_loss(p, cfg, *args),
+                                  params)
+        got.append((float(loss), float(O.global_norm(g))))
+    (l_gpu, n_gpu), (l_cpu, n_cpu) = got
+    rel_l, rel_n = abs(l_gpu - l_cpu) / abs(l_cpu), abs(n_gpu - n_cpu) / n_cpu
+    check(rel_l <= TRAIN_FULL_RTOL and rel_n <= TRAIN_FULL_RTOL,
+          f"phase 4i: full-width {cfg.name}: loss {l_gpu} vs {l_cpu}, "
+          f"gradient norm {n_gpu} vs {n_cpu}")
+    print(f"phase 4i: f32 training, card vs CPU: 3 steps' losses within "
+          f"{TRAIN_LOSS_RTOL:g} relative ({', '.join(report)}); full-width "
+          f"{cfg.name} at batch 4 x {CLS_TRAIN['max_prompt']}: loss "
+          f"{l_gpu:.6f} vs {l_cpu:.6f} ({rel_l:.1e}), global gradient norm "
+          f"{n_gpu:.6f} vs {n_cpu:.6f} ({rel_n:.1e}), within "
+          f"{TRAIN_FULL_RTOL:g}; {time.perf_counter() - t0:.1f} s")
+
+
 # phase 5's rows, timed on the card by profile_rows once every row's
 # CUDA-event and host times are taken
 TIMED = []
@@ -3339,7 +3856,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import ref
     from repro_torch.kernels.chunked_prefill_attention import (
-        chunked_prefill_attention)
+        chunked_prefill_attention, chunked_prefill_attention_bwd)
     from repro_torch.kernels.paged_cross_decode_attention import (
         paged_cross_decode_attention)
     from repro_torch.kernels.paged_decode_attention import (
@@ -3364,7 +3881,8 @@ def main() -> int:
                "paged_decode_attention": paged_decode_attention,
                "paged_mla_decode_attention": paged_mla_decode_attention,
                "paged_cross_decode_attention": paged_cross_decode_attention,
-               "chunked_prefill_attention": chunked_prefill_attention}
+               "chunked_prefill_attention": chunked_prefill_attention,
+               "chunked_prefill_attention_bwd": chunked_prefill_attention_bwd}
     check(tuple(kernels) == build.NAMES, f"kernels {build.NAMES}")
 
     # -- phase 1: build ------------------------------------------------
@@ -3429,6 +3947,9 @@ def main() -> int:
         errs["chunked_prefill_attention"], check_dense_cases(
             "2g", mla_cross_shapes(ds_cfg, vlm_cfg, wh_cfg), device,
             kernels, SEED + 23))
+    # 2h: kernel 5's backward at the training shapes, f32 and bf16
+    errs["chunked_prefill_attention_bwd"], bwd_row = check_bwd_kernel(
+        device, kernels, card)
 
     # -- phase 3: serve full-width qwen2-0.5b in bf16 --------------------
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -3511,6 +4032,12 @@ def main() -> int:
     # -- phases 3m, 3n: RecurrentGemma-9B and xLSTM-1.3B whole, dense ----
     rg_launches = rg_phase(device, kernels, card)
     xlstm_phase(device, kernels, card)
+    # -- phase 3s: training: the length predictor fine-tuned and serving --
+    cls_cfg, cls_params, bwd_launches = predictor_finetune(device, kernels,
+                                                           card)
+    predictor_serve(cls_cfg, cls_params, device, kernels, card)
+    del cls_params
+    lm_100m_phase(device, kernels, card)
 
     # -- phase 4: device vs CPU, 2 layers, f32 ---------------------------
     # (phases 4-4f run kernels 1, 5 and 3 in f32 only: their counters,
@@ -3592,6 +4119,8 @@ def main() -> int:
           f"kernel 1 never launched: {f32_launches}")
     print(f"phases 4-4f: launches {f32_launches}: every f32 launch of "
           "kernels 1 and 3 on the CUDA-core body")
+    # -- phase 4i: the training path, card vs CPU, f32 --------------------
+    train_vs_cpu(device)
 
     # -- phase 5: kernel times at the served shapes (bf16) ---------------
     dtype = torch.bfloat16
@@ -3798,6 +4327,10 @@ def main() -> int:
     # its row's times were taken at (3o's launches print beside its row)
     launches["chunked_prefill_attention"] = rg_launches[
         "chunked_prefill_attention"]
+    # the backward's main path: phase 3s's fine-tune, timed at its shape
+    # in phase 2h
+    timing["chunked_prefill_attention_bwd"] = bwd_row
+    launches["chunked_prefill_attention_bwd"] = bwd_launches
     rows = []
     for name in build.NAMES:
         tm = timing[name]

@@ -2,14 +2,14 @@
 
 ``get_config(arch_id)`` returns the full-size ModelConfig;
 ``get_smoke_config(arch_id)`` the reduced same-family variant used by the
-CPU tests.  Only the architectures whose paths are ported are listed:
+CPU tests.  Every architecture of the reference's registry is ported:
 the full-attention GQA models (qwen2-0.5b, Phi-4-mini, Mistral-Nemo,
 DeepSeek-67B, OPT-13B, and Granite-MoE with its routed experts),
 DeepSeek-V2 (MLA latent pages and routed MoE), Llama-3.2-Vision-11B
-and Whisper-tiny (read-only cross-attention pages), and the two dense
+and Whisper-tiny (read-only cross-attention pages), the two dense
 rows, RecurrentGemma-9B (RG-LRU + local attention) and xLSTM-1.3B
-(sLSTM / mLSTM), which serve on the dense backend.  opt-125m-cls comes
-with the classifier (ROADMAP A.13).
+(sLSTM / mLSTM), which serve on the dense backend, and opt-125m-cls,
+the length predictor's classifier (``model.classify``).
 """
 from __future__ import annotations
 
@@ -20,10 +20,7 @@ from repro_torch.models.config import ModelConfig, reduced
 ARCH_IDS = ("qwen2_0_5b", "llama_3_2_vision_11b", "phi4_mini_3_8b",
             "whisper_tiny", "deepseek_v2_236b", "mistral_nemo_12b",
             "deepseek_67b", "granite_moe_3b_a800m", "opt_13b",
-            "recurrentgemma_9b", "xlstm_1_3b")
-# the reference's other architectures, and the ROADMAP item that ports
-# each one's path
-PENDING = {"opt_125m_cls": "A.13"}
+            "recurrentgemma_9b", "xlstm_1_3b", "opt_125m_cls")
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 
@@ -36,10 +33,8 @@ def canonical(arch_id: str) -> str:
 def _module(arch_id: str):
     name = canonical(arch_id)
     if name not in ARCH_IDS:
-        item = PENDING.get(name, "queue A")
-        raise NotImplementedError(
-            f"{arch_id}: not ported yet; its config comes with the slice "
-            f"that ports its path (ROADMAP.md {item})")
+        raise ValueError(f"{arch_id}: no such architecture (known: "
+                         f"{', '.join(ARCH_IDS)})")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -5,17 +5,19 @@ the *length range bucket* of a request's decode, if served by the target
 model.  Granularity trades accuracy for scheduling precision: the paper
 reports 58.9% / 74.9% / 85% accuracy at granularity 100 / 200 / 400.
 
-The port holds the bucket helpers and ``OraclePredictor``, the
-stand-in with a configurable target accuracy (the paper's
-acc-200=74.9% and acc=100% ablations, Fig. 18) that the ``Cluster``
-uses by default.  It draws from numpy's ``default_rng(seed)`` exactly as
-the reference does, so both predict the same buckets draw for draw.
-The classifier-backed ``ModelPredictor`` needs ``model.classify`` and
-comes with the training slice.
+Two implementations share an interface:
+  * ``ModelPredictor``  — runs the port's classifier (``model.classify``,
+    fine-tuned by ``train/trainer.py``; see
+    ``repro_torch.finetune_predictor``) on the params' device.
+  * ``OraclePredictor`` — the stand-in with a configurable target
+    accuracy (the paper's acc-200=74.9% and acc=100% ablations, Fig. 18)
+    that the ``Cluster`` uses by default.  It draws from numpy's
+    ``default_rng(seed)`` exactly as the reference does, so both predict
+    the same buckets draw for draw.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -59,3 +61,46 @@ class OraclePredictor:
         b = self.predict(prompt_tokens, true_decode_len)
         lo, hi = bucket_range(b, self.granularity)
         return b, lo, hi
+
+
+class ModelPredictor:
+    """The classifier predictor.  It runs the predict model in parallel
+    with the main LLM (§3.3.2 'parallel mode'): one ``classify`` call a
+    request, under ``torch.inference_mode()``, on the device the params
+    live on (kernel 5's forward on the card).  Prompts are cut to
+    ``max_len`` tokens (§5.2.2)."""
+
+    def __init__(self, cfg, params, granularity: int = DEFAULT_GRANULARITY,
+                 max_len: int = 512):
+        from repro_torch.models import model as M
+        self.cfg = cfg
+        self.params = params
+        self.granularity = granularity
+        self.max_len = max_len        # padding cut limit (§5.2.2)
+        self._classify = M.classify
+
+    def predict(self, prompt_tokens, true_decode_len: int = 0) -> int:
+        import torch
+        dev = self.params["embed"].device
+        toks = np.asarray(prompt_tokens)[: self.max_len]
+        with torch.inference_mode():
+            logits = self._classify(
+                self.params, self.cfg,
+                torch.as_tensor(toks[None, :].astype(np.int32), device=dev),
+                torch.tensor([len(toks)], dtype=torch.int32, device=dev))
+            return int(torch.argmax(logits[0]))
+
+    def predict_range(self, prompt_tokens, true_decode_len: int = 0
+                      ) -> Tuple[int, int, int]:
+        b = self.predict(prompt_tokens, true_decode_len)
+        lo, hi = bucket_range(b, self.granularity)
+        return b, lo, hi
+
+    def batch_accuracy(self, prompts: Sequence[np.ndarray],
+                       decode_lens: Sequence[int]) -> float:
+        hits = 0
+        for p, d in zip(prompts, decode_lens):
+            hits += int(self.predict(p) == min(
+                bucket_of(d, self.granularity),
+                self.cfg.n_classes - 1))
+        return hits / max(1, len(prompts))

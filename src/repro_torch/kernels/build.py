@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-split-compile=0"]
 NAMES = ("paged_prefill_attention", "paged_decode_attention",
          "paged_mla_decode_attention", "paged_cross_decode_attention",
-         "chunked_prefill_attention")
+         "chunked_prefill_attention", "chunked_prefill_attention_bwd")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # one build at a time in this process: two threads' first uses would

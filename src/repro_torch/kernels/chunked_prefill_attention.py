@@ -30,6 +30,16 @@ them that ran the tensor-core body, and
 host int here: the reference passes the shared chunk start as a (1,)
 array, and ``ops.prefill_attention`` reads it to the host once, so the
 wrapper can check it against the cache without a device sync.
+
+Training: ``chunked_prefill_attention_bwd`` is the backward, a second
+hand-written kernel (``csrc/chunked_prefill_attention_bwd.cu``) in
+place of JAX's autodiff of the reference's ``flash_attn``; on a CPU
+tensor it runs ``ref.chunked_prefill_attention_bwd``, on a CUDA tensor
+the kernel or a raise, and ``chunked_prefill_attention_bwd.launches``
+counts its launches (the backward launches).
+``ChunkedPrefillAttention``, a ``torch.autograd.Function``, ties the
+two together: its forward is this module's forward wrapper, its
+backward the backward wrapper.
 """
 from __future__ import annotations
 
@@ -43,6 +53,11 @@ from repro_torch.kernels.prefill_plan import (TENSOR_CORE, prefill_plan,
                                               sm_count)
 
 NAME = "chunked_prefill_attention"
+BWD_NAME = "chunked_prefill_attention_bwd"
+# the (hd, hd_v) pairs the backward is instantiated for: kernel 5's
+# served widths and the smoke configs' (DeepSeek-V2's MLA: 80 / 64)
+BWD_WIDTHS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128),
+              (80, 64))
 _FLOATS = ("torch.float32", "torch.bfloat16")
 _I32 = ("torch.int32",)
 _P = ctypes.c_void_p
@@ -124,3 +139,100 @@ def chunked_prefill_attention(q, k_cache, v_cache, kv_len, q_offset: int,
 chunked_prefill_attention.launches = 0
 chunked_prefill_attention.tensor_core_launches = 0
 chunked_prefill_attention.noncausal_launches = 0
+
+
+def _bwd_launcher():
+    fn = build.load(BWD_NAME).chunked_prefill_attention_bwd_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P, ctypes.c_float, _P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def chunked_prefill_attention_bwd(q, k_cache, v_cache, out, dout, kv_len,
+                                  q_offset: int, *, window: int = 0,
+                                  causal: bool = True):
+    """The gradients (dq, dk, dv) of ``chunked_prefill_attention(q,
+    k_cache, v_cache, kv_len, q_offset, window=window, causal=causal)``,
+    whose output was ``out``, for the output gradient ``dout`` (both (b,
+    sq, h, hd_v)).  Each in its input's shape and dtype; a query row with
+    no key it may attend, and a key row no query reaches (every row at
+    or past kv_len), gets exactly 0."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k_cache.shape[1], k_cache.shape[2]
+    hd_v = v_cache.shape[3]
+    q_offset = int(q_offset)
+    if q_offset < 0 or (causal and q_offset + sq > skv):
+        raise ValueError(f"{BWD_NAME}: chunk [{q_offset}, {q_offset + sq})"
+                         f" outside a cache of {skv} positions")
+    if q.device.type == "cpu":
+        return ref.chunked_prefill_attention_bwd(
+            q, k_cache, v_cache, out, dout, kv_len, q_offset,
+            window=window, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"{BWD_NAME}: no kernel for device {q.device}")
+    if (hd, hd_v) not in BWD_WIDTHS:
+        raise ValueError(f"{BWD_NAME}: no instantiation for head widths "
+                         f"hd={hd}, hd_v={hd_v} (instantiated: "
+                         f"{BWD_WIDTHS})")
+    dev = q.device
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("out", out), ("dout", dout)):
+        build.check_cuda(name, t, ndim=4,
+                         dtypes=_FLOATS if t is q else (str(q.dtype),),
+                         device=dev)
+    build.check_cuda("kv_len", kv_len, ndim=1, dtypes=_I32, device=dev)
+    if (k_cache.shape[0] != b or k_cache.shape[3] != hd
+            or v_cache.shape[:3] != k_cache.shape[:3] or h % kvh
+            or out.shape != (b, sq, h, hd_v) or dout.shape != out.shape
+            or kv_len.shape != (b,) or min(b, sq, skv) < 1):
+        raise ValueError(
+            f"{BWD_NAME}: shapes q {tuple(q.shape)}, caches "
+            f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, out / dout "
+            f"{tuple(out.shape)}/{tuple(dout.shape)}, kv_len "
+            f"{tuple(kv_len.shape)} do not fit")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k_cache, v_cache))
+    # each query row's max, 1 / sum and dO . O, from the first launch to
+    # the second
+    stats = torch.empty(3 * b * h * sq, dtype=torch.float32, device=dev)
+    args = array("q", (
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), kv_len.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, q_offset, sq,
+        skv, h, kvh, hd, hd_v, int(window), int(bool(causal)),
+        build.DTYPE_CODES[str(q.dtype)]))
+    err = _bwd_launcher()(args.buffer_info()[0], hd ** -0.5,
+                          build.raw_stream(dev))
+    build.raise_on_error(BWD_NAME, err)
+    build.count(chunked_prefill_attention_bwd, "launches")
+    return dq, dk, dv
+
+
+chunked_prefill_attention_bwd.launches = 0
+
+
+class ChunkedPrefillAttention(torch.autograd.Function):
+    """Kernel 5 with a gradient: ``apply(q, k_cache, v_cache, kv_len,
+    q_offset, window, causal)`` runs ``chunked_prefill_attention``; the
+    backward runs ``chunked_prefill_attention_bwd`` on the saved q, k,
+    v, output and kv_len.  kv_len, q_offset, window and causal take no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k_cache, v_cache, kv_len, q_offset: int,
+                window: int, causal: bool):
+        out = chunked_prefill_attention(q, k_cache, v_cache, kv_len,
+                                        q_offset, window=window,
+                                        causal=causal)
+        ctx.save_for_backward(q, k_cache, v_cache, out, kv_len)
+        ctx.args = (q_offset, window, causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k_cache, v_cache, out, kv_len = ctx.saved_tensors
+        q_offset, window, causal = ctx.args
+        dq, dk, dv = chunked_prefill_attention_bwd(
+            q, k_cache, v_cache, out, dout.contiguous(), kv_len, q_offset,
+            window=window, causal=causal)
+        return dq, dk, dv, None, None, None, None

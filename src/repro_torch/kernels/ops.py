@@ -8,14 +8,14 @@ PyTorch version for CPU tensors.  The model calls these, never a
 kernel directly.  Every form is ported: the dense and paged GQA
 prefill (the paged one also non-causal, for the cross-attention read),
 the paged GQA decode, the absorbed MLA decode and the cross-attention
-decode.
+decode.  The paged forms never take a gradient; the dense prefill does.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.chunked_prefill_attention import (
-    chunked_prefill_attention)
+    ChunkedPrefillAttention, chunked_prefill_attention)
 from repro_torch.kernels.paged_cross_decode_attention import (
     paged_cross_decode_attention)
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
@@ -36,7 +36,10 @@ def prefill_attention(q, k_cache, v_cache, kv_len, q_offset, *,
 
     Dense form (``block_table=None``): k_cache/v_cache are per-request
     (b, skv, kvh, hd) caches and ``q_offset`` is a (1,) shared chunk
-    start (read to the host once).
+    start (read to the host once).  When grad is enabled and q, k or v
+    requires it (training), the call goes through
+    ``ChunkedPrefillAttention``, whose backward is kernel 5's backward;
+    otherwise it is the forward wrapper alone.
 
     Paged form: k_cache/v_cache are the shared page pools
     (n_pages, page, kvh, hd), ``block_table`` is (b, n_slots) physical
@@ -53,6 +56,12 @@ def prefill_attention(q, k_cache, v_cache, kv_len, q_offset, *,
         if q0.numel() != 1:
             raise ValueError(f"dense prefill: q_offset {tuple(q0.shape)} "
                              "is not one shared chunk start")
+        if torch.is_grad_enabled() and (q.requires_grad
+                                        or k_cache.requires_grad
+                                        or v_cache.requires_grad):
+            return ChunkedPrefillAttention.apply(
+                q, k_cache, v_cache, _i32(kv_len, dev), int(q0[0]),
+                window, causal)
         return chunked_prefill_attention(
             q, k_cache, v_cache, _i32(kv_len, dev), int(q0[0]),
             window=window, causal=causal)

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the attention kernels (paged GQA prefill,
 paged GQA decode, absorbed MLA decode, cross-attention decode, dense
-chunked prefill).
+chunked prefill and its backward).
 
 Each function computes what its CUDA kernel computes, with dense
 tensor ops: gather the block-table pages (the paged forms), masked
@@ -30,12 +30,12 @@ def _masked_softmax(s, mask):
     return torch.softmax(s, dim=-1) * mask.any(dim=-1, keepdim=True)
 
 
-def _prefill(q, k, v, kv_len, q_pos, window, causal):
-    """q: (b, sq, h, hd) against dense k (b, K, kvh, hd) / v (b, K, kvh,
-    hd_v); q_pos: (b, sq) absolute query positions; key j sits at
-    position j.  Returns (b, sq, h, hd_v) in q's dtype."""
+def _prefill_probs(q, k, kv_len, q_pos, window, causal):
+    """(q as f32 (b, sq, kvh, rep, hd), the masked softmax P (b, kvh,
+    rep, sq, K)) of q (b, sq, h, hd) against dense k (b, K, kvh, hd);
+    q_pos: (b, sq) absolute query positions; key j sits at position j."""
     b, sq, h, hd = q.shape
-    kvh, hd_v = v.shape[2], v.shape[3]
+    kvh = k.shape[2]
     qf = q.float().reshape(b, sq, kvh, h // kvh, hd)
     s = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.float()) * hd ** -0.5
     k_pos = torch.arange(k.shape[1], device=q.device)
@@ -44,9 +44,17 @@ def _prefill(q, k, v, kv_len, q_pos, window, causal):
         mask = mask & (q_pos[:, :, None] >= k_pos[None, None, :])
     if window:
         mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
-    p = _masked_softmax(s, mask[:, None, None])
+    return qf, _masked_softmax(s, mask[:, None, None])
+
+
+def _prefill(q, k, v, kv_len, q_pos, window, causal):
+    """q: (b, sq, h, hd) against dense k (b, K, kvh, hd) / v (b, K, kvh,
+    hd_v); q_pos: (b, sq) absolute query positions; key j sits at
+    position j.  Returns (b, sq, h, hd_v) in q's dtype."""
+    b, sq, h, _ = q.shape
+    _, p = _prefill_probs(q, k, kv_len, q_pos, window, causal)
     out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
-    return out.reshape(b, sq, h, hd_v).to(q.dtype)
+    return out.reshape(b, sq, h, v.shape[3]).to(q.dtype)
 
 
 def paged_prefill_attention(q, k_pool, v_pool, block_table, kv_len,
@@ -75,6 +83,34 @@ def chunked_prefill_attention(q, k_cache, v_cache, kv_len, q_offset: int,
     q_pos = (q_offset + torch.arange(sq, device=q.device))[None].expand(
         b, sq)
     return _prefill(q, k_cache, v_cache, kv_len, q_pos, window, causal)
+
+
+def chunked_prefill_attention_bwd(q, k_cache, v_cache, out, dout, kv_len,
+                                  q_offset: int, *, window: int = 0,
+                                  causal: bool = True):
+    """The gradients (dq, dk, dv) of ``chunked_prefill_attention`` given
+    its output ``out`` and the output's gradient ``dout`` (both (b, sq,
+    h, hd_v)), with full score matrices in f32: P the masked softmax,
+    dV = P^T dO, dS = P (dO V^T - D) with D = rowsum(dO * O), dQ = dS K
+    * scale and dK = dS^T Q * scale, each summed over the rep query heads
+    of a KV head.  A row with no key it may attend has P = 0, so its dq
+    is 0, and so is every key row no query reaches.  Returns the three
+    in the inputs' dtypes."""
+    b, sq, h, hd = q.shape
+    kvh, hd_v = v_cache.shape[2], v_cache.shape[3]
+    q_pos = (q_offset + torch.arange(sq, device=q.device))[None].expand(
+        b, sq)
+    qf, p = _prefill_probs(q, k_cache, kv_len, q_pos, window, causal)
+    dof = dout.float().reshape(b, sq, kvh, h // kvh, hd_v)
+    dv = torch.einsum("bgrqk,bqgrd->bkgd", p, dof)
+    dp = torch.einsum("bqgrd,bkgd->bgrqk", dof, v_cache.float())
+    d_row = (dof * out.float().reshape(dof.shape)).sum(-1)   # (b,q,g,r)
+    ds = p * (dp - d_row.permute(0, 2, 3, 1)[..., None])
+    scale = hd ** -0.5
+    dq = torch.einsum("bgrqk,bkgd->bqgrd", ds, k_cache.float()) * scale
+    dk = torch.einsum("bgrqk,bqgrd->bkgd", ds, qf) * scale
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k_cache.dtype),
+            dv.to(v_cache.dtype))
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, lens, *,

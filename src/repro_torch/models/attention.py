@@ -5,7 +5,10 @@ models against read-only cross pages of the same pool, and the dense
 backend's GQA, MLA and cross-attention against per-request caches
 (every dense prefill read and the dense cross read in decode through
 kernel 5; the dense GQA and MLA decode in torch ops, as the
-reference's plain jnp).
+reference's plain jnp), and the train-mode forms ``gqa_forward`` /
+``mla_forward`` over a whole sequence, whose kernel-5 reads carry
+kernel 5's backward (``cross_kv`` / ``cross_forward`` serve training
+as they are).
 
 GQA attends through the CUDA kernels in ``kernels/ops.py`` in both
 phases.  MLA attends in its absorbed form over a LATENT pool (the
@@ -76,6 +79,30 @@ def gqa_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# training: the whole sequence, differentiable
+# ---------------------------------------------------------------------------
+def _train_attention(q, k, v, window: int) -> torch.Tensor:
+    """Causal self-attention of a whole sequence through kernel 5's dense
+    form (q_offset 0, kv_len the sequence length for every request),
+    which carries its hand-written backward when grad is on.  The
+    reference runs its blocked ``flash_attn`` and JAX's autodiff of it."""
+    b, s = q.shape[:2]
+    kv_len = torch.full((b,), s, dtype=torch.int32, device=q.device)
+    return ops.prefill_attention(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), kv_len, 0, window=window)
+
+
+def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                window: int = 0) -> torch.Tensor:
+    """Full-sequence (train-mode) GQA self-attention of x (b, s, d),
+    causal with the layer's window.  Returns (b, s, d)."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = gqa_qkv(p, cfg, x, positions)
+    return _train_attention(q, k, v, window).reshape(b, s, -1) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -291,6 +318,28 @@ def mla_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     return out.reshape(b, s, -1) @ p["wo"], cache
 
 
+def mla_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                window: int = 0) -> torch.Tensor:
+    """Full-sequence (train-mode) MLA of x (b, s, d): the latent of every
+    position decompressed through wkv_b into per-head K (nope ++ the
+    shared RoPE key) and V, attended causally through kernel 5 at MLA's
+    widths and scale, as ``mla_prefill`` does for a chunk.  Returns (b,
+    s, d)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    positions = torch.arange(s, device=x.device)[None, :]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_kv_latent(p, cfg, x, positions)
+    kvb = (c_kv @ p["wkv_b"]).reshape(b, s, h,
+                                      m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kvb.split([m.qk_nope_head_dim, m.v_head_dim], -1)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, m.qk_rope_head_dim)], -1)
+    return _train_attention(q, k, v, window).reshape(b, s, -1) @ p["wo"]
+
+
 def mla_decode_attn(p: dict, cfg: ModelConfig, q_nope, q_rope, ckv, krope,
                     pos, window: int = 0) -> torch.Tensor:
     """Absorbed one-token MLA attention over the dense latent cache, in
@@ -418,9 +467,12 @@ _PROMOTED: dict = {}
 def _promote(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``w`` in ``dtype``, copied once per weight and type: the copy is
     kept while the weight lives and made anew only if the weight was
-    changed in place since."""
+    changed in place since.  A weight that takes a gradient is cast
+    afresh on every call, so the gradient reaches it."""
     if w.dtype == dtype:
         return w
+    if w.requires_grad and torch.is_grad_enabled():
+        return w.to(dtype)
     key = (id(w), dtype)
     version = None if w.is_inference() else w._version
     hit = _PROMOTED.get(key)

@@ -3,21 +3,21 @@ kind, with the per-kind init and the dense backend's cache init and
 apply (reference ``src/repro/models/blocks.py``).
 
 The paged path composes its ATTN / CROSS_ATTN blocks in
-``model._paged_attn_block``; the dense backend runs ``apply_block`` in
-two modes:
+``model._paged_attn_block``; the dense backend and training run
+``apply_block`` in three modes:
 
+  * "train":   the whole sequence, no cache (differentiable)
   * "prefill": a chunk of the sequence, reading and writing a cache
   * "decode":  one token a request, per-request positions ``pos: (b,)``
 
 Dense caches are dicts of tensors, updated in place where the reference
 updates a cache functionally (the chunk's or the token's K/V or MLA
 latent rows, a cross layer's encoder K/V); a recurrent block's new
-state replaces its old tensors in the returned dict.  The "train" mode
-is not ported yet (ROADMAP A.13): it raises.
+state replaces its old tensors in the returned dict.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -205,26 +205,35 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
 # apply
 # ---------------------------------------------------------------------------
 def apply_block(kind: str, p: Dict[str, Any], cfg: ModelConfig,
-                x: torch.Tensor, *, mode: str, cache: Dict[str, Any],
-                pos=None, q_offset: int = 0, enc=None):
-    """One block on the dense backend.  ``mode`` "prefill": x (b, s, d)
-    is the chunk at the shared absolute start ``q_offset`` (a host int);
-    "decode": x (b, 1, d) at per-request positions ``pos`` (b,).  A
-    CROSS_ATTN layer given ``enc`` (b, enc_ctx, d), the encoder output,
-    in a prefill projects it to its cross K/V, stores them in the
-    cache's dtype and attends the unrounded ones, as the reference does;
-    otherwise it attends the stored ``ck`` / ``cv``.
-    Returns (x_out, new_cache)."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r}: training comes with "
-                                  "its slice (ROADMAP A.13)")
+                x: torch.Tensor, *, mode: str,
+                cache: Optional[Dict[str, Any]] = None, pos=None,
+                q_offset: int = 0, enc=None):
+    """One block.  ``mode`` "train": x (b, s, d) is the whole sequence
+    from position 0, no cache, and a CROSS_ATTN layer projects ``enc``
+    (b, enc_ctx, d), the encoder output, to its cross K/V; "prefill": x
+    (b, s, d) is the chunk at the shared absolute start ``q_offset`` (a
+    host int); "decode": x (b, 1, d) at per-request positions ``pos``
+    (b,).  A CROSS_ATTN layer given ``enc`` in a prefill projects it to
+    its cross K/V, stores them in the cache's dtype and attends the
+    unrounded ones, as the reference does; otherwise it attends the
+    stored ``ck`` / ``cv``.
+    Returns (x_out, new_cache (None in "train"), aux_loss): the MoE
+    load-balance loss of a routed layer (an f32 scalar), None for the
+    others, which the reference gives a zero."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}")
+    train = mode == "train"
+    aux = None
     if kind in (ATTN, LOCAL_ATTN, CROSS_ATTN):
         window = cfg.local_window if kind == LOCAL_ATTN \
             else cfg.sliding_window
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         # the self-attention functions touch only their own leaves of
         # the layer's cache (k / v, or ckv / krope), in place
-        if mode == "prefill":
+        if train:
+            fn = A.mla_forward if cfg.mla is not None else A.gqa_forward
+            a = fn(p["attn"], cfg, h, window=window)
+        elif mode == "prefill":
             fn = A.mla_prefill if cfg.mla is not None else A.gqa_prefill
             a, cache = fn(p["attn"], cfg, h, cache, q_offset=q_offset,
                           window=window)
@@ -235,32 +244,36 @@ def apply_block(kind: str, p: Dict[str, Any], cfg: ModelConfig,
         x = x + a
         if kind == CROSS_ATTN:
             hc = rms_norm(x, p["norm_c"], cfg.norm_eps)
-            if mode == "prefill" and enc is not None:
+            if train or (mode == "prefill" and enc is not None):
                 ck, cv = A.cross_kv(p["cross"], cfg, enc)
-                cache["ck"].copy_(ck)
-                cache["cv"].copy_(cv)
+                if not train:
+                    cache["ck"].copy_(ck)
+                    cache["cv"].copy_(cv)
             else:
                 ck, cv = cache["ck"], cache["cv"]
             x = x + A.cross_forward(p["cross"], cfg, hc, ck, cv)
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
         if "moe" in p:
-            return x + MLP.moe_forward(p["moe"], cfg, h2)[0], cache
-        return x + MLP.mlp_forward(p["mlp"], cfg, h2), cache
+            m, aux = MLP.moe_forward(p["moe"], cfg, h2)
+        else:
+            m = MLP.mlp_forward(p["mlp"], cfg, h2)
+        return x + m, cache, aux
     if kind == RGLRU:
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        fn = R.rglru_forward if mode == "prefill" else R.rglru_decode
+        fn = R.rglru_decode if mode == "decode" else R.rglru_forward
         r, new_cache = fn(p["rglru"], cfg, h, cache)
         x = x + r
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-        return x + MLP.mlp_forward(p["mlp"], cfg, h2), new_cache
+        return (x + MLP.mlp_forward(p["mlp"], cfg, h2),
+                None if train else new_cache, aux)
     if kind in (SLSTM, MLSTM):
         h = rms_norm(x, p["norm"], cfg.norm_eps)
         if kind == SLSTM:
-            fn = R.slstm_forward if mode == "prefill" else R.slstm_decode
+            fn = R.slstm_decode if mode == "decode" else R.slstm_forward
         else:
-            fn = R.mlstm_forward if mode == "prefill" else R.mlstm_decode
+            fn = R.mlstm_decode if mode == "decode" else R.mlstm_forward
         r, new_cache = fn(p["cell"], cfg, h, cache)
-        return x + r, new_cache
+        return x + r, None if train else new_cache, aux
     raise ValueError(kind)
 
 

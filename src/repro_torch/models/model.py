@@ -23,9 +23,15 @@ page pools and the dense K/V caches are updated in place):
                             through kernel 5
   * ``decode_step`` / ``decode_step_greedy`` — dense decode, one token a
                             request at per-request positions
+  * ``forward_train``     — full-sequence logits and the MoE aux loss,
+                            each layer checkpointed, attention through
+                            kernel 5 and its backward
+  * ``classify``          — the length predictor's head: mean-pooled
+                            valid tokens -> (b, n_classes)
 
 Parameters are a plain dict: ``embed`` (V, d), ``final_norm`` (d,),
-optional ``lm_head``/``pos_embed``, and ``layers``, one dict per layer
+optional ``lm_head``/``pos_embed``/``cls_head`` (d, n_classes), and
+``layers``, one dict per layer
 in execution order (``blocks.init_block``): {norm1, attn, norm2, mlp |
 moe[, norm_c, cross]} for the attention kinds, {norm1, rglru, norm2,
 mlp} for RG-LRU and {norm, cell} for sLSTM / mLSTM.  ``attn`` is GQA
@@ -49,13 +55,14 @@ The dense cache is a list with one dict a layer, in the order of
 ``layers``: {k, v} (b, S, kvh, hd) for ATTN / LOCAL_ATTN, or with MLA
 {ckv (b, S, lora), krope (b, S, rope)}; a CROSS_ATTN layer adds its
 encoder K/V {ck, cv} (b, enc_ctx, kvh, hd); the recurrent state for the
-other kinds.  Training comes with its slice (ROADMAP A.13).
+other kinds.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
@@ -90,6 +97,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["pos_embed"] = ini.normal((cfg.n_positions, d), d ** -0.5)
     if not cfg.tie_embeddings:
         params["lm_head"] = ini.normal((d, cfg.vocab_size), d ** -0.5)
+    if cfg.n_classes:
+        params["cls_head"] = ini.normal((d, cfg.n_classes), d ** -0.5)
     # DeepSeek-V2's first-k-dense rule: with MoE the prefix layers stay
     # dense and the others are routed
     params["layers"] = [
@@ -108,16 +117,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def param_count(cfg: ModelConfig) -> int:
     """Parameters of ``cfg``: ``init_params``'s leaves built on the meta
     device, so the shapes are the served ones and nothing is allocated
-    (DeepSeek-V2 counts 236 G).  Tied heads count once, the encoder
-    counts, and a classifier head (``n_classes``) counts as in the
+    (DeepSeek-V2 counts 236 G).  Tied heads count once; the encoder and
+    a classifier head (``n_classes``) count as leaves, as in the
     reference's ``param_count``."""
     def numel(x) -> int:
         if isinstance(x, torch.Tensor):
             return x.numel()
         values = x.values() if isinstance(x, dict) else x
         return sum(numel(v) for v in values)
-    return (numel(init_params(cfg, None, device="meta"))
-            + cfg.d_model * cfg.n_classes)
+    return numel(init_params(cfg, None, device="meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -187,14 +195,29 @@ def cache_select(src_cache, slot: int):
             for layer in src_cache]
 
 
-def _run_layers(params, cfg: ModelConfig, h, *, mode: str, caches,
+def _run_layers(params, cfg: ModelConfig, h, *, mode: str, caches=None,
                 pos=None, q_offset: int = 0, enc=None):
+    """Every layer in order.  Returns (h, new caches (None without
+    ``caches``), the summed MoE aux loss).  In "train" mode with grad
+    on, each layer runs under ``torch.utils.checkpoint``, as the
+    reference wraps it in ``jax.checkpoint``: the backward keeps only
+    each layer's input and runs the layer again (kernel 5's forward
+    included) before its backward."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = mode == "train" and torch.is_grad_enabled()
     new_caches = []
-    for kind, p, c in zip(cfg.layer_kinds, params["layers"], caches):
-        h, nc = B.apply_block(kind, p, cfg, h, mode=mode, cache=c, pos=pos,
-                              q_offset=q_offset, enc=enc)
+    for i, (kind, p) in enumerate(zip(cfg.layer_kinds, params["layers"])):
+        c = None if caches is None else caches[i]
+        kw = dict(mode=mode, cache=c, pos=pos, q_offset=q_offset, enc=enc)
+        if remat:
+            h, nc, a = checkpoint(B.apply_block, kind, p, cfg, h,
+                                  use_reentrant=False, **kw)
+        else:
+            h, nc, a = B.apply_block(kind, p, cfg, h, **kw)
+        if a is not None:
+            aux = aux + a
         new_caches.append(nc)
-    return h, new_caches
+    return h, (None if caches is None else new_caches), aux
 
 
 def _encode(params, cfg: ModelConfig, enc_embeds):
@@ -215,9 +238,9 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, q_offset: int = 0,
     b, s = tokens.shape
     positions = q_offset + torch.arange(s, device=tokens.device)[None, :]
     h = _embed(params, cfg, tokens, positions.expand(b, s))
-    h, cache = _run_layers(params, cfg, h, mode="prefill", caches=cache,
-                           q_offset=q_offset,
-                           enc=_encode(params, cfg, enc_embeds))
+    h, cache, _ = _run_layers(params, cfg, h, mode="prefill", caches=cache,
+                              q_offset=q_offset,
+                              enc=_encode(params, cfg, enc_embeds))
     return _head(params, cfg, h[:, -1:]), cache
 
 
@@ -237,8 +260,8 @@ def prefill_chunked(params, cfg: ModelConfig, tokens, cache, *,
         positions = start + torch.arange(chunk_size,
                                          device=tokens.device)[None, :]
         h = _embed(params, cfg, chunk, positions.expand(b, chunk_size))
-        h, cache = _run_layers(params, cfg, h, mode="prefill",
-                               caches=cache, q_offset=start, enc=enc)
+        h, cache, _ = _run_layers(params, cfg, h, mode="prefill",
+                                  caches=cache, q_offset=start, enc=enc)
     return _head(params, cfg, h[:, -1:]), cache
 
 
@@ -246,8 +269,8 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, pos):
     """tokens: (b, 1); pos: (b,) current positions.  Returns (logits
     (b, 1, V), cache)."""
     h = _embed(params, cfg, tokens, pos[:, None])
-    h, cache = _run_layers(params, cfg, h, mode="decode", caches=cache,
-                           pos=pos)
+    h, cache, _ = _run_layers(params, cfg, h, mode="decode", caches=cache,
+                              pos=pos)
     return _head(params, cfg, h), cache
 
 
@@ -256,6 +279,38 @@ def decode_step_greedy(params, cfg: ModelConfig, tokens, cache, pos):
     (next_tokens (b,) int32, cache)."""
     logits, cache = decode_step(params, cfg, tokens, cache, pos)
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
+
+
+# ---------------------------------------------------------------------------
+# training and the classifier
+# ---------------------------------------------------------------------------
+def forward_train(params, cfg: ModelConfig, tokens, *, enc_embeds=None):
+    """tokens: (b, s) int -> (logits (b, s, V), aux loss (f32 scalar)).
+    ``enc_embeds`` (b, enc_ctx, d): the frontend embeddings of a model
+    with cross layers, run through the encoder stack for an
+    encoder-decoder."""
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    h = _embed(params, cfg, tokens, positions)
+    h, _, aux = _run_layers(params, cfg, h, mode="train",
+                            enc=_encode(params, cfg, enc_embeds))
+    return _head(params, cfg, h), aux
+
+
+def classify(params, cfg: ModelConfig, tokens, lengths):
+    """The length predictor's head: the layers in "train" mode over
+    tokens (b, s), the first ``lengths`` (b,) positions of each row
+    mean-pooled (no final norm), times ``cls_head``.  Returns (b,
+    n_classes)."""
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    h = _embed(params, cfg, tokens, positions)
+    h, _, _ = _run_layers(params, cfg, h, mode="train")
+    mask = (positions < lengths.to(positions.device).long()[:, None]
+            ).to(h.dtype)
+    pooled = (h * mask[..., None]).sum(1) / torch.clamp(
+        mask.sum(1, keepdim=True), min=1.0)
+    return pooled @ params["cls_head"]
 
 
 # ---------------------------------------------------------------------------

@@ -65,7 +65,8 @@ def from_reference(tree: Dict[str, Any], cfg: ModelConfig,
     pytree of numpy arrays, on ``device``, dtypes kept."""
     out: Dict[str, Any] = {
         k: to_tensor(tree[k], device)
-        for k in ("embed", "final_norm", "pos_embed", "lm_head")
+        for k in ("embed", "final_norm", "pos_embed", "lm_head",
+                  "cls_head")
         if k in tree}
     out["layers"] = _layers(tree, cfg, device)
     if "encoder" in tree:

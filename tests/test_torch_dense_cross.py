@@ -166,17 +166,19 @@ def test_apply_block_cross_matches_reference(setup):
     ro, rc, _ = RB.apply_block("cross_attn", rp, cfg, jnp.asarray(x),
                                mode="prefill", cache=rc, q_offset=0,
                                enc=jnp.asarray(enc))
-    out, c = B.apply_block("cross_attn", p, cfg, torch.from_numpy(x),
-                           mode="prefill", cache=c, q_offset=0,
-                           enc=torch.from_numpy(enc))
+    out, c, _ = B.apply_block("cross_attn", p, cfg,
+                              torch.from_numpy(x), mode="prefill",
+                              cache=c, q_offset=0,
+                              enc=torch.from_numpy(enc))
     _close(ro, out)
     x = _rand(rng, 2, 1, cfg.d_model)
     pos = np.array([8, 5], np.int32)
     ro, rc, _ = RB.apply_block("cross_attn", rp, cfg, jnp.asarray(x),
                                mode="decode", cache=rc,
                                pos=jnp.asarray(pos))
-    out, c = B.apply_block("cross_attn", p, cfg, torch.from_numpy(x),
-                           mode="decode", cache=c, pos=torch.from_numpy(pos))
+    out, c, _ = B.apply_block("cross_attn", p, cfg,
+                              torch.from_numpy(x), mode="decode",
+                              cache=c, pos=torch.from_numpy(pos))
     _close(ro, out)
     assert set(c) == set(rc) == {"k", "v", "ck", "cv"}
     for key in c:

@@ -158,18 +158,22 @@ def test_apply_block_mla_matches_reference(ds):
     rp, p = _layers(ref_params, params)[0]
     rc, c = _pair_cache(_latent(cfg, rng, 2, 24))
     x = rng.standard_normal((2, 8, cfg.d_model)).astype(np.float32)
-    ro, rc, _ = RB.apply_block("attn", rp, cfg, jnp.asarray(x),
-                               mode="prefill", cache=rc, q_offset=8)
-    out, c = B.apply_block("attn", p, cfg, torch.from_numpy(x),
-                           mode="prefill", cache=c, q_offset=8)
+    ro, rc, raux = RB.apply_block("attn", rp, cfg, jnp.asarray(x),
+                                  mode="prefill", cache=rc, q_offset=8)
+    out, c, aux = B.apply_block("attn", p, cfg, torch.from_numpy(x),
+                                mode="prefill", cache=c, q_offset=8)
     _close(ro, out)
+    np.testing.assert_allclose(float(aux), float(raux), rtol=1e-5)
     x = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
     pos = np.array([16, 9], np.int32)
-    ro, rc, _ = RB.apply_block("attn", rp, cfg, jnp.asarray(x),
-                               mode="decode", cache=rc, pos=jnp.asarray(pos))
-    out, c = B.apply_block("attn", p, cfg, torch.from_numpy(x),
-                           mode="decode", cache=c, pos=torch.from_numpy(pos))
+    ro, rc, raux = RB.apply_block("attn", rp, cfg, jnp.asarray(x),
+                                  mode="decode", cache=rc,
+                                  pos=jnp.asarray(pos))
+    out, c, aux = B.apply_block("attn", p, cfg, torch.from_numpy(x),
+                                mode="decode", cache=c,
+                                pos=torch.from_numpy(pos))
     _close(ro, out)
+    np.testing.assert_allclose(float(aux), float(raux), rtol=1e-5)
     _cache_close(rc, c)
 
 

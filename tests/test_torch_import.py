@@ -63,7 +63,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 
 
 def test_kernel_sources_ship_with_the_port():
-    """Both CUDA kernels build from sources in the checkout."""
+    """Every CUDA kernel builds from sources in the checkout."""
     from repro_torch.kernels import build
     for name in build.NAMES:
         assert (build.CSRC / f"{name}.cu").is_file(), name
@@ -92,3 +92,34 @@ def test_async_slice_modules_stand_alone():
         path = ROOT / "src" / (name.replace(".", "/") + ".py")
         roots = {n.split(".")[0] for n in _imported_roots(path)}
         assert not roots & {"jax", "jaxlib", "repro"}, (name, roots)
+
+
+def test_training_slice_modules_stand_alone():
+    """The training slice (the train package, the classifier's config,
+    the training launcher and the two example modules) imports with JAX
+    and ``repro`` blocked, and none names either: ``train/data.py``
+    takes ``bucket_of`` and ``generate`` from the port's own copies."""
+    mods = ("repro_torch.train.optimizer", "repro_torch.train.trainer",
+            "repro_torch.train.data", "repro_torch.launch.train",
+            "repro_torch.train_lm", "repro_torch.finetune_predictor",
+            "repro_torch.configs.opt_125m_cls", "repro_torch.core.predictor")
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for n in {mods!r}:\n"
+            "    importlib.import_module(n)\n"
+            "from repro_torch.core.predictor import ModelPredictor\n"
+            "from repro_torch.models.model import classify, forward_train\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    for name in mods:
+        path = ROOT / "src" / (name.replace(".", "/") + ".py")
+        names = set(_imported_roots(path))
+        assert not {n.split(".")[0] for n in names} & {
+            "jax", "jaxlib", "repro"}, (name, names)
+    data = set(_imported_roots(PORT / "train" / "data.py"))
+    assert {"repro_torch.core.predictor",
+            "repro_torch.runtime.workload"} <= data, data
