@@ -54,11 +54,14 @@ Phases, in order (any failure exits non-zero):
    3s's batch (64 x 256, 12 / 12 heads of 64), the 100m preset of
    ``train_lm`` (12 / 4 heads of 64) at 128 and 4,096 positions,
    RecurrentGemma's 16 / 1 heads of 256 with its 2,048 window, MLA's
-   (192, 128) and the non-causal cross read (32 / 8 heads of 128, 512
-   queries over 1,600 keys, one kv_len short): dq, dk, dv within
-   ``grad_limit`` (``limit``, in f32 relative to the largest gradient
-   past 1), rows no query or key reaches exactly 0; each case timed
-   beside its bound, the plain version and the library's backward.
+   (192, 128), the non-causal cross read (32 / 8 heads of 128, 512
+   queries over 1,600 keys, one kv_len short) and one ModelPredictor
+   call (1 x 300): kernel 5's forward within ``limit`` of the plain
+   one; dq, dk, dv within ``grad_limit`` (``limit``, in f32 relative to
+   the largest gradient past 1) and, in f32, at most twice as far from
+   an f64 autograd witness as the f32 plain version; rows no query or
+   key reaches exactly 0; each case timed beside its bound, the plain
+   version and the library's backward.
    bf16 outputs are held to a limit scaled by the plain output's
    magnitude (``limit``).
    The prefill kernels (1 and 5) and the MLA decode kernel (3) run bf16
@@ -128,8 +131,10 @@ Phases, in order (any failure exits non-zero):
    on every leaf the loss reaches; ms a step and the eval accuracy.  The
    tuned model then serves as ``ModelPredictor`` in
    ``Cluster(runtime="engine")`` for full-width qwen2-0.5b over 3e's
-   prompt lengths: every request with a predicted bucket, kernel 5
-   launched 12 times a call; the classifier's ms a call.  Then 5 steps
+   prompt lengths and one eval prompt of each class: every request's
+   bucket the one ModelPredictor gives outside the Cluster, the eval
+   prompts' buckets not all one, kernel 5 launched 12 times a call; the
+   classifier's ms a call.  Then 5 steps
    of ``train_lm``'s 100m preset at 8 x 128: ms a step and the peak of
    allocated memory.  Every kernel's launch counter is
    set to 0 just before each run and read just after it.
@@ -361,7 +366,8 @@ def grad_limit(exp) -> float:
     an attention output is, and reaches 10-20 at phase 2h's shapes; two
     f32 computations of it (different dot-product orders in the
     recomputed scores, exponentiated) then differ by a few parts in a
-    million of that magnitude."""
+    million of that magnitude.  Phase 2h shows the gap is that rounding:
+    it holds both against an f64 witness (``f64_grads``)."""
     tol = limit(exp)
     if str(exp.dtype) == "torch.float32":
         tol *= max(1.0, float(exp.abs().max()))
@@ -3337,9 +3343,10 @@ def bwd_cases():
     kv_len = the sequence) of OPT-125M-cls at 3s's batch, the 100m
     preset of ``train_lm`` at 128 and 4,096 positions, RecurrentGemma's
     local attention (16 / 1 heads of 256, window 2,048), MLA's
-    decompressed (192, 128), and the cross read, non-causal, 512 queries
+    decompressed (192, 128), the cross read, non-causal, 512 queries
     over 1,600 keys with one request's kv_len short (its key rows past it
-    must get 0)."""
+    must get 0), and one ``ModelPredictor`` call (3s: one request of a
+    ragged 300 tokens at OPT-125M-cls's widths)."""
     from repro_torch.configs import get_config
     from repro_torch.train_lm import preset_config
     opt_cfg, lm = get_config(CLS_ARCH), preset_config("100m")
@@ -3359,7 +3366,9 @@ def bwd_cases():
         (f"{ds_cfg.name} MLA", mla_widths(ds_cfg), 0, True, 1, 1024, 0,
          1024, [1024]),
         (f"{vlm_cfg.name} cross read", gqa_widths(vlm_cfg), 0, False, 2,
-         512, 0, ec, [ec, 1000])]
+         512, 0, ec, [ec, 1000]),
+        (f"{opt_cfg.name} ModelPredictor call", gqa_widths(opt_cfg), 0,
+         True, 1, 300, 0, 300, [300])]
 
 
 def bwd_work(q, k, v, kv_len, q_off, window=0, causal=True):
@@ -3394,6 +3403,26 @@ def sdpa_bwd_ms(q, k, v, kv_len, q_off, dout, window=0, causal=True):
     return cuda_ms(fwd_bwd) - cuda_ms(fwd)
 
 
+def f64_grads(q, k, v, kv_len, q_off, dout, window=0, causal=True):
+    """The exact gradients' witness: autograd of the masked softmax
+    attention in float64 on the same inputs (full score matrices, rows
+    with no live key 0), independent of both the kernel and
+    ``ref.chunked_prefill_attention_bwd``.  Returns (dq, dk, dv) in
+    float64."""
+    import torch
+    b, sq, h, hd = q.shape
+    skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    qd, kd, vd = (t.detach().double().requires_grad_(True)
+                  for t in (q, k, v))
+    qg = qd.reshape(b, sq, kvh, h // kvh, hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kd) * hd ** -0.5
+    live = live_keys(q, kv_len, q_off, skv, window, causal)[:, None, None]
+    s = s.masked_fill(~live, torch.finfo(torch.float64).min)
+    p = torch.where(live, torch.softmax(s, -1), 0.0)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p, vd).reshape(b, sq, h, hd_v)
+    return torch.autograd.grad(o, (qd, kd, vd), dout.double())
+
+
 def live_keys(q, kv_len, q_off, n_keys, window=0, causal=True):
     """(b, sq, n_keys) bool on q's device: the keys each query row may
     attend."""
@@ -3412,24 +3441,37 @@ def check_bwd_kernel(device, kernels, card):
     """Phase 2h: kernel 5's backward against its plain version
     (``ref.chunked_prefill_attention_bwd``) at ``bwd_cases``' shapes, f32
     and bf16, on the output kernel 5 gives, caches of garbage past
-    kv_len: dq, dk and dv within ``grad_limit``, key rows no query reaches
-    (those past kv_len) and query rows without a key exactly 0, one
-    launch a call.  Each case timed: ms a launch (CUDA events), the
-    card's µs by the profiler, the bound, the plain version's ms and the
-    library's (``sdpa_bwd_ms``).  Returns (the largest error, the timing
-    row of 3s's OPT-125M case in f32, the shape 3s trains at)."""
+    kv_len: that output within ``limit`` of the plain forward's (these
+    are the training path's and the predictor's forward shapes); dq, dk
+    and dv within ``grad_limit``, key rows no query reaches (those past
+    kv_len) and query rows without a key exactly 0, one launch a call.
+    In f32 both the kernel's gradients and the plain version's are also
+    held against ``f64_grads``: the kernel may be at most twice as far
+    from it as the f32 plain version is (or within the unscaled f32
+    limit), so ``grad_limit``'s scaling covers f32 rounding and no more.
+    Each case timed: ms a launch (CUDA events), the card's µs by the
+    profiler, the bound, the plain version's ms and the library's
+    (``sdpa_bwd_ms``).  Returns (the backward's largest error, the
+    forward's, the timing row of 3s's OPT-125M case in f32)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.chunked_prefill_attention import (
         chunked_prefill_attention, chunked_prefill_attention_bwd)
     gen = torch.Generator(device=device).manual_seed(SEED + 40)
-    name, worst_err, row = "chunked_prefill_attention_bwd", 0.0, None
+    name, worst_err, worst_fwd, row = ("chunked_prefill_attention_bwd",
+                                       0.0, 0.0, None)
     for what, widths, window, causal, *shape in bwd_cases():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, kv_len, q_off = dense_case(widths, *shape, dtype,
                                                 device, gen)
             kw = dict(window=window, causal=causal)
             out = chunked_prefill_attention(q, k, v, kv_len, q_off, **kw)
+            case_fwd = {}
+            compare("chunked_prefill_attention", out,
+                    ref.chunked_prefill_attention(q, k, v, kv_len, q_off,
+                                                  **kw), case_fwd)
+            fwd_err, fwd_share = case_fwd["chunked_prefill_attention"]
+            worst_fwd = max(worst_fwd, fwd_err)
             dout = torch.randn(out.shape, generator=gen,
                                device=device).to(dtype)
             args = (q, k, v, out, dout, kv_len, q_off)
@@ -3451,6 +3493,22 @@ def check_bwd_kernel(device, kernels, card):
                      + float(got[2][dead_k].float().abs().sum()))
             check(zeros == 0.0, f"phase 2h: {what}: rows no query or key "
                   f"reaches are not 0 ({zeros})")
+            witness = ""
+            if dtype == torch.float32:
+                exact = f64_grads(q, k, v, kv_len, q_off, dout, window,
+                                  causal)
+                ratios = []
+                for g, e, x, label in zip(got, exp, exact,
+                                          ("dq", "dk", "dv")):
+                    k64 = float((g.double() - x).abs().max())
+                    p64 = float((e.double() - x).abs().max())
+                    check(k64 <= max(2 * p64, TOL["torch.float32"]),
+                          f"phase 2h: {what}: {label} is {k64} from the "
+                          f"f64 witness, the f32 plain version {p64}")
+                    ratios.append(f"{label} {k64:.2e}/{p64:.2e}")
+                witness = (" vs the f64 witness, kernel/f32 plain: "
+                           + ", ".join(ratios) + ";")
+                del exact
             err = max(e for e, _ in worst.values())
             share = max(s for _, s in worst.values())
             mags = "/".join(f"{float(e.float().abs().max()):.2f}"
@@ -3478,9 +3536,11 @@ def check_bwd_kernel(device, kernels, card):
                   f"of {hd} (V {hd_v}) over {k.shape[1]} keys, kv_len "
                   + (f"{shape[4]}" if len(set(shape[4])) > 1
                      else f"{shape[4][0]} each")
-                  + f", window {window}: max abs err {err:.3e} "
+                  + f", window {window}: forward max abs err "
+                  f"{fwd_err:.3e} ({fwd_share:.3f} of the limit); backward "
+                  f"max abs err {err:.3e} "
                   f"({share:.3f} of the limit; largest |dq|/|dk|/|dv| "
-                  f"{mags}), {int(dead_k.sum())} key "
+                  f"{mags});{witness} {int(dead_k.sum())} key "
                   f"rows past every query exactly 0; {ms:.3f} ms a launch "
                   f"({tm['tflops']:.1f} TFLOP/s of the five products), "
                   f"device {dev_us:.1f} µs ({via}), host {host:.1f} µs, "
@@ -3491,7 +3551,7 @@ def check_bwd_kernel(device, kernels, card):
                 row = tm
             del args, q, k, v, out, dout, got, exp
             torch.cuda.empty_cache()
-    return worst_err, row
+    return worst_err, worst_fwd, row
 
 
 class TimedPredictor:
@@ -3516,8 +3576,8 @@ def predictor_finetune(device, kernels, card):
     checkpointed layers run again before their backward) and its
     backward n_layers times, a gradient on every leaf the loss reaches
     (all but ``final_norm``, which ``classify`` does not apply: exactly
-    0, as the reference's).  Returns (cfg, tuned params, the backward's
-    launches over the run)."""
+    0, as the reference's).  Returns (cfg, tuned params, the eval split
+    (tokens, lengths, labels), the backward's launches over the run)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
@@ -3586,7 +3646,8 @@ def predictor_finetune(device, kernels, card):
           f"{len(toks) - split}; kernel 5 {2 * L} forward + {L} backward "
           f"launches a step; {np.mean(step_ms[1:]):.1f} ms a step (mean "
           f"of steps 2-{steps}; first {step_ms[0]:.1f} ms) ({card})")
-    return cfg, params, bwd_launches
+    return (cfg, params, (toks[split:], lens[split:], labels[split:]),
+            bwd_launches)
 
 
 def leaf_names(tree, prefix=""):
@@ -3600,14 +3661,19 @@ def leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
-def predictor_serve(cls_cfg, cls_params, device, kernels, card):
+def predictor_serve(cls_cfg, cls_params, eval_set, device, kernels, card):
     """Phase 3s (ii): the tuned classifier as ``ModelPredictor`` in
     ``Cluster(runtime="engine")`` serving full-width qwen2-0.5b (bf16, 2
     + 2 instances) over 3e's prompt lengths, their tokens drawn below
-    the classifier's vocabulary so both models read them: every request
-    finished with a predicted bucket >= 0, kernel 5 launched n_layers
-    times a predictor call (f32, the CUDA-core body), no backward.
-    Prints the classifier's ms a call (§3.3.2's parallel mode)."""
+    the classifier's vocabulary so both models read them, and over the
+    first prompt of each class in the classifier's eval split
+    (``eval_set``: tokens, lengths, labels; at most N_REQUESTS classes,
+    so their buckets differ): every request finished, its predicted
+    bucket the
+    one ``ModelPredictor`` gives for its prompt outside the Cluster, the
+    eval prompts' buckets not all one; kernel 5 launched n_layers times
+    a predictor call (f32, the CUDA-core body), no backward.  Prints the
+    classifier's ms a call (§3.3.2's parallel mode)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.predictor import ModelPredictor
@@ -3616,35 +3682,50 @@ def predictor_serve(cls_cfg, cls_params, device, kernels, card):
     cfg = get_config("qwen2_0_5b")
     params = M.init_params(cfg, torch.Generator(device=device)
                            .manual_seed(SEED), device)
-    pred = TimedPredictor(ModelPredictor(
-        cls_cfg, cls_params, granularity=CLS_TRAIN["granularity"]))
-    reqs = make_requests(min(cfg.vocab_size, cls_cfg.vocab_size))
+    model_pred = ModelPredictor(cls_cfg, cls_params,
+                                granularity=CLS_TRAIN["granularity"])
+    pred = TimedPredictor(model_pred)
+    first = np.unique(eval_set[2], return_index=True)[1][:N_REQUESTS]
+    ev_toks, ev_lens, ev_labels = (a[first] for a in eval_set)
+    prompts = ([r.prompt_tokens for r in make_requests(
+        min(cfg.vocab_size, cls_cfg.vocab_size))]
+        + [t[:n] for t, n in zip(ev_toks, ev_lens)])
     cl = Cluster(cfg, runtime="engine", params=params, device=device,
                  predictor=pred, chunk_size=SERVE["chunk_size"],
                  page_size=SERVE["page_size"], max_seq=SERVE["max_seq"],
                  n_pages=SERVE["n_pages"], max_batch=SERVE["max_slots"],
                  **CLUSTER)
     zero_launches(kernels)
-    handles = [cl.submit(r.prompt_tokens, sampling=SamplingParams(
-        max_new_tokens=NEW_TOKENS)) for r in reqs]
+    handles = [cl.submit(p, sampling=SamplingParams(
+        max_new_tokens=NEW_TOKENS)) for p in prompts]
     cl.run()
     launches = read_launches(kernels)
     buckets = [cl._reqs[h.rid].predicted_bucket for h in handles]
     check(all(len(h.result().tokens) == NEW_TOKENS for h in handles),
           "phase 3s: not every request finished with its tokens")
-    check(all(b >= 0 for b in buckets) and len(pred.ms) == len(handles),
-          f"phase 3s: buckets {buckets}, {len(pred.ms)} predictor calls")
+    check(len(pred.ms) == len(handles), f"phase 3s: {len(pred.ms)} "
+          f"predictor calls for {len(handles)} requests")
     k5 = launches["chunked_prefill_attention"]
     check(k5 == cls_cfg.n_layers * len(pred.ms)
           and launches["chunked_prefill_attention (tensor cores)"] == 0
           and launches["chunked_prefill_attention_bwd"] == 0
           and launches["paged_prefill_attention"] > 0,
           f"phase 3s: launches {launches}")
+    outside = [model_pred.predict(p) for p in prompts]
+    ev_buckets = buckets[-len(first):]
+    check(buckets == outside and len(set(ev_buckets)) > 1,
+          f"phase 3s: buckets in the Cluster {buckets}, ModelPredictor "
+          f"outside it {outside}")
+    hits = sum(int(b == y) for b, y in zip(ev_buckets, ev_labels))
     print(f"phase 3s: {cfg.name} through Cluster(runtime=\"engine\", "
           f"predictor=ModelPredictor({cls_cfg.name})), {len(handles)} "
-          f"requests of {sorted(len(r.prompt_tokens) for r in reqs)} "
-          f"tokens: predicted buckets {buckets}; kernel 5 {k5} launches "
-          f"= {cls_cfg.n_layers} x {len(pred.ms)} predictor calls; "
+          f"requests of {[len(p) for p in prompts]} tokens (3e's, then "
+          f"one a class from the eval split): predicted buckets "
+          f"{buckets}, each the one ModelPredictor gives outside the "
+          f"Cluster; the eval prompts' labels "
+          f"{[int(y) for y in ev_labels]} ({hits} of {len(first)} hit); "
+          f"kernel 5 {k5} launches = "
+          f"{cls_cfg.n_layers} x {len(pred.ms)} predictor calls; "
           f"classifier {np.mean(pred.ms):.2f} ms a call (min "
           f"{min(pred.ms):.2f}, max {max(pred.ms):.2f}, host clock) "
           f"({card})")
@@ -3656,7 +3737,10 @@ def lm_100m_phase(device, kernels, card):
     """Phase 3s (iii): a few steps of ``train_lm``'s 100m preset (12
     layers, d 768, 12 / 4 heads, vocab 32,768, f32) at its default batch
     of 8 x 128: losses finite, kernel 5 launched 2 x 12 forward and 12
-    backward a step; ms a step and the peak of allocated memory."""
+    backward a step; ms a step and the phase's peak of allocated memory
+    above what earlier phases still hold."""
+    import gc
+
     import torch
     from repro_torch.models import model as M
     from repro_torch.train import data as D
@@ -3665,6 +3749,10 @@ def lm_100m_phase(device, kernels, card):
     from repro_torch.train_lm import preset_config
     cfg = preset_config("100m")
     steps, L = LM_TRAIN["steps"], cfg.n_layers
+    gc.collect()          # earlier phases' cycles, before the baseline
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     params = M.init_params(cfg, torch.Generator(device=device)
                            .manual_seed(SEED), device)
     state = O.init(params)
@@ -3672,8 +3760,6 @@ def lm_100m_phase(device, kernels, card):
                                                 total_steps=200))
     stream = D.lm_batches(cfg.vocab_size, LM_TRAIN["batch"],
                           LM_TRAIN["seq"], seed=1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     ms, losses = [], []
     for i, (toks, labels) in zip(range(steps), stream):
         zero_launches(kernels)
@@ -3687,12 +3773,13 @@ def lm_100m_phase(device, kernels, card):
         check(fwd == 2 * L and bwd == L and math.isfinite(losses[-1]),
               f"phase 3s: {cfg.name} step {i}: loss {losses[-1]}, kernel "
               f"5 forward {fwd}, backward {bwd}")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     print(f"phase 3s: {cfg.name} ({M.param_count(cfg) / 1e6:.1f} M "
           f"parameters, f32), {steps} steps of {LM_TRAIN['batch']} x "
           f"{LM_TRAIN['seq']}: loss {losses[0]:.3f} -> {losses[-1]:.3f}; "
           f"{np.mean(ms[1:]):.1f} ms a step (mean of steps 2-{steps}; "
-          f"first {ms[0]:.1f} ms); peak allocated {peak:.2f} GiB ({card})")
+          f"first {ms[0]:.1f} ms); peak allocated {peak:.2f} GiB above "
+          f"the {base / 2 ** 30:.2f} GiB held before ({card})")
     del params, state
     torch.cuda.empty_cache()
 
@@ -3948,8 +4035,11 @@ def main() -> int:
             "2g", mla_cross_shapes(ds_cfg, vlm_cfg, wh_cfg), device,
             kernels, SEED + 23))
     # 2h: kernel 5's backward at the training shapes, f32 and bf16
-    errs["chunked_prefill_attention_bwd"], bwd_row = check_bwd_kernel(
-        device, kernels, card)
+    # (and kernel 5's forward at the training and predictor shapes)
+    errs["chunked_prefill_attention_bwd"], fwd_err, bwd_row = (
+        check_bwd_kernel(device, kernels, card))
+    errs["chunked_prefill_attention"] = max(
+        errs["chunked_prefill_attention"], fwd_err)
 
     # -- phase 3: serve full-width qwen2-0.5b in bf16 --------------------
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -4033,9 +4123,9 @@ def main() -> int:
     rg_launches = rg_phase(device, kernels, card)
     xlstm_phase(device, kernels, card)
     # -- phase 3s: training: the length predictor fine-tuned and serving --
-    cls_cfg, cls_params, bwd_launches = predictor_finetune(device, kernels,
-                                                           card)
-    predictor_serve(cls_cfg, cls_params, device, kernels, card)
+    cls_cfg, cls_params, eval_set, bwd_launches = predictor_finetune(
+        device, kernels, card)
+    predictor_serve(cls_cfg, cls_params, eval_set, device, kernels, card)
     del cls_params
     lm_100m_phase(device, kernels, card)
 

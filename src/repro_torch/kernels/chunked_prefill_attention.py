@@ -54,10 +54,9 @@ from repro_torch.kernels.prefill_plan import (TENSOR_CORE, prefill_plan,
 
 NAME = "chunked_prefill_attention"
 BWD_NAME = "chunked_prefill_attention_bwd"
-# the (hd, hd_v) pairs the backward is instantiated for: kernel 5's
-# served widths and the smoke configs' (DeepSeek-V2's MLA: 80 / 64)
-BWD_WIDTHS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128),
-              (80, 64))
+# what the backward's launch returns for head widths it has no
+# instantiation for (its source lists the instantiated ones)
+BWD_NO_WIDTHS = -1
 _FLOATS = ("torch.float32", "torch.bfloat16")
 _I32 = ("torch.int32",)
 _P = ctypes.c_void_p
@@ -171,10 +170,6 @@ def chunked_prefill_attention_bwd(q, k_cache, v_cache, out, dout, kv_len,
             window=window, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"{BWD_NAME}: no kernel for device {q.device}")
-    if (hd, hd_v) not in BWD_WIDTHS:
-        raise ValueError(f"{BWD_NAME}: no instantiation for head widths "
-                         f"hd={hd}, hd_v={hd_v} (instantiated: "
-                         f"{BWD_WIDTHS})")
     dev = q.device
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                     ("out", out), ("dout", dout)):
@@ -203,6 +198,10 @@ def chunked_prefill_attention_bwd(q, k_cache, v_cache, out, dout, kv_len,
         build.DTYPE_CODES[str(q.dtype)]))
     err = _bwd_launcher()(args.buffer_info()[0], hd ** -0.5,
                           build.raw_stream(dev))
+    if err == BWD_NO_WIDTHS:
+        raise ValueError(f"{BWD_NAME}: no instantiation for head widths "
+                         f"hd={hd}, hd_v={hd_v} (csrc/{BWD_NAME}.cu lists "
+                         "the instantiated pairs)")
     build.raise_on_error(BWD_NAME, err)
     build.count(chunked_prefill_attention_bwd, "launches")
     return dq, dk, dv

@@ -50,12 +50,14 @@
 //
 // Head widths (hd, hd_v): (32, 32), (64, 64), (128, 128), (256, 256),
 // (192, 128) (MLA decompressed) and (80, 64) (the DeepSeek-V2 smoke
-// config's MLA); any other returns cudaErrorInvalidValue and the wrapper
-// raises ValueError first.
+// config's MLA); these are the only list of them: for any other pair
+// the launch returns NO_WIDTHS (-1) before launching anything, and the
+// wrapper raises ValueError.
 #include "paged_attention.cuh"
 
 namespace {
 
+constexpr int NO_WIDTHS = -1;  // (hd, hd_v) not instantiated
 constexpr int THREADS = 256;
 constexpr int T = 32;        // query positions and keys a tile
 constexpr int LDS = T + 1;   // row stride of a score tile
@@ -431,7 +433,7 @@ int with_widths(const long long* args, float scale, cudaStream_t stream) {
   if (hd == 192 && hd_v == 128)
     return launch<E, 192, 128>(args, scale, stream);
   if (hd == 80 && hd_v == 64) return launch<E, 80, 64>(args, scale, stream);
-  return (int)cudaErrorInvalidValue;
+  return NO_WIDTHS;
 }
 
 }  // namespace
@@ -441,7 +443,8 @@ int with_widths(const long long* args, float scale, cudaStream_t stream) {
 // stats (3 * b * h * sq floats of scratch), b, q_offset, sq, skv, h, kvh,
 // hd, hd_v, window, causal, dtype (0 = float32, 1 = bfloat16).  Every
 // tensor is contiguous; q, k, v, out, dout and the gradients share the
-// dtype.  Returns the cudaError_t of the launches (0 on success).
+// dtype.  Returns the cudaError_t of the launches (0 on success), or
+// NO_WIDTHS for head widths without an instantiation.
 extern "C" int chunked_prefill_attention_bwd_launch(const long long* args,
                                                     float scale,
                                                     void* stream) {

@@ -198,14 +198,16 @@ def cache_select(src_cache, slot: int):
 def _run_layers(params, cfg: ModelConfig, h, *, mode: str, caches=None,
                 pos=None, q_offset: int = 0, enc=None):
     """Every layer in order.  Returns (h, new caches (None without
-    ``caches``), the summed MoE aux loss).  In "train" mode with grad
-    on, each layer runs under ``torch.utils.checkpoint``, as the
-    reference wraps it in ``jax.checkpoint``: the backward keeps only
-    each layer's input and runs the layer again (kernel 5's forward
-    included) before its backward."""
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    remat = mode == "train" and torch.is_grad_enabled()
-    new_caches = []
+    ``caches``), the summed MoE aux loss in "train" mode (an f32 scalar),
+    None in the serving modes, which run no extra operation for it).  In
+    "train" mode with grad on, each layer runs under
+    ``torch.utils.checkpoint``, as the reference wraps it in
+    ``jax.checkpoint``: the backward keeps only each layer's input and
+    runs the layer again (kernel 5's forward included) before its
+    backward."""
+    train = mode == "train"
+    remat = train and torch.is_grad_enabled()
+    new_caches, auxes = [], []
     for i, (kind, p) in enumerate(zip(cfg.layer_kinds, params["layers"])):
         c = None if caches is None else caches[i]
         kw = dict(mode=mode, cache=c, pos=pos, q_offset=q_offset, enc=enc)
@@ -214,9 +216,14 @@ def _run_layers(params, cfg: ModelConfig, h, *, mode: str, caches=None,
                                   use_reentrant=False, **kw)
         else:
             h, nc, a = B.apply_block(kind, p, cfg, h, **kw)
-        if a is not None:
-            aux = aux + a
+        if train and a is not None:
+            auxes.append(a)
         new_caches.append(nc)
+    aux = None
+    if train:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for a in auxes:
+            aux = aux + a
     return h, (None if caches is None else new_caches), aux
 
 

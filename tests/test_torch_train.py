@@ -307,6 +307,26 @@ def test_apply_block_train_returns_the_moe_aux():
     assert float(aux) > 0
 
 
+def test_run_layers_sums_the_aux_in_train_mode_only():
+    """DeepSeek-V2's routed layers: ``_run_layers`` returns the summed
+    MoE aux in train mode and None in prefill and decode, where the
+    served paths run no operation for it."""
+    _, _, cfg, p = _setup("deepseek_v2_236b")
+    rng = np.random.default_rng(7)
+    h = _t(rng.standard_normal((BATCH, SEQ, cfg.d_model))
+           .astype(np.float32))
+    cache = M.init_cache(cfg, BATCH, SEQ + 1, device="cpu")
+    with torch.no_grad():
+        _, _, aux = M._run_layers(p, cfg, h, mode="train")
+        _, cache, pre = M._run_layers(p, cfg, h, mode="prefill",
+                                      caches=cache)
+        _, _, dec = M._run_layers(p, cfg, h[:, -1:], mode="decode",
+                                  caches=cache,
+                                  pos=torch.full((BATCH,), SEQ))
+    assert aux.dtype == torch.float32 and aux.dim() == 0 and float(aux) > 0
+    assert pre is None and dec is None
+
+
 # -- the launcher ------------------------------------------------------------
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_launch_train_runs_every_arch_on_cpu(arch):
