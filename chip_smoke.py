@@ -61,7 +61,9 @@ Phases, in order (any failure exits non-zero):
    the largest gradient past 1) and, in f32, at most twice as far from
    an f64 autograd witness as the f32 plain version; rows no query or
    key reaches exactly 0; each case timed beside its bound, the plain
-   version and the library's backward.
+   version and the library's backward.  2i: kernel 5 at phase 3t's
+   prefill chunks (16 requests of 512 queries at 0, 1,536 and 3,584 of a
+   cache of 4,104, qwen2's 14 / 2 heads of 64), f32 and bf16.
    bf16 outputs are held to a limit scaled by the plain output's
    magnitude (``limit``).
    The prefill kernels (1 and 5) and the MLA decode kernel (3) run bf16
@@ -136,7 +138,19 @@ Phases, in order (any failure exits non-zero):
    prompts' buckets not all one, kernel 5 launched 12 times a call; the
    classifier's ms a call.  Then 5 steps
    of ``train_lm``'s 100m preset at 8 x 128: ms a step and the peak of
-   allocated memory.  Every kernel's launch counter is
+   allocated memory.  3t: the multi-device layer.
+   ``make_disagg_step`` on full-width qwen2-0.5b (bf16) across a (pod 2,
+   data 1, model 1) mesh of two processes on the one card, joined by
+   gloo (``torch.multiprocessing.spawn``): pod 0 prefills 16 x 4,096
+   tokens in chunks of 512, hands its cache and last logits to pod 1
+   (a broadcast within the pod pair; gloo's broadcast of a CUDA tensor
+   is tried first), pod 1 decodes one token.  Pod 1's first and decode
+   logits and its cache equal the same work in one process on the card,
+   pod 0's cache is zero, kernel 5 ran 24 x 8 times on pod 0 and never
+   on pod 1; then the 2-layer f32 smoke config the same way, pod 1's
+   logits against the one-process CPU port (1e-5, the same argmax).
+   Handoff bytes, ms and GB/s, prefill and decode ms.  A failure in
+   either process fails the phase.  Every kernel's launch counter is
    set to 0 just before each run and read just after it.
 4. Device vs CPU in f32, once on the card (kernels) and once on the CPU
    (plain versions): qwen2-0.5b at 2 layers on the served requests (4),
@@ -173,8 +187,8 @@ Phases, in order (any failure exits non-zero):
    version and one PyTorch library call, measured with CUDA events
    (kernels 1 and 2 also at OPT-13B's and windowed Mistral-Nemo's
    shapes, kernel 5 at 3m's chunks and 3o's whole prompts, the library
-   call then on the in-window K/V, at 3p's MLA chunks and at 3q's cross
-   reads in prefill and decode),
+   call then on the in-window K/V, at 3p's MLA chunks, at 3q's cross
+   reads in prefill and decode and at 3t's prefill chunks),
    with its achieved TFLOP/s, the body it ran and the wrapper's host µs
    a call; then, every row timed, the card's device µs a call by the
    profiler, with the device TB/s and share of the bound.  Last, phase
@@ -343,6 +357,15 @@ TRAIN_CHECK_ARCHS = ("qwen2_0_5b", "opt_125m_cls", "deepseek_v2_236b",
                      "whisper_tiny")
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_FULL_RTOL = 1e-4
+# phases 2i, 3t, 5: make_disagg_step on a (pod 2, data 1, model 1) mesh
+# of two processes sharing the card (gloo): the reference run_disagg's
+# wave, 16 prompts of 4,096 tokens in chunks of 512 (the cache holds 8
+# more positions for the decode), then the 2-layer f32 smoke config
+DISAGG = dict(batch=16, seq=4096, chunk=512, pad=8)
+DISAGG_SMOKE = dict(batch=4, seq=64, chunk=16, pad=8)
+DISAGG_CHUNKS = (0, 1536, 3584)      # phase 2i / 5: kernel 5's chunk starts
+DISAGG_TIMEOUT_S = 600               # a collective that waits longer fails
+DISAGG_F32_TOL = 1e-5                # card vs CPU smoke logits, f32
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3868,6 +3891,255 @@ def train_vs_cpu(device):
 TIMED = []
 
 
+def disagg_shapes(cfg):
+    """Phase 2i's kernel-5 cases: phase 3t's prefill chunks (16 requests
+    a call, 512 queries at DISAGG_CHUNKS of a cache of 4,104), qwen2's
+    widths."""
+    b, sq, skv = DISAGG["batch"], DISAGG["chunk"], DISAGG["seq"] + \
+        DISAGG["pad"]
+    return [(f"{cfg.name} disagg chunks", gqa_widths(cfg), 0, True, False,
+             b, sq, q0, skv, [q0 + sq] * b) for q0 in DISAGG_CHUNKS]
+
+
+def _timed(fn, times, key, group=None):
+    """``fn`` with its wall seconds (the card synchronized on both sides,
+    and, with ``group``, a barrier of the group first) added to
+    ``times[key]``."""
+    def run(*a, **k):
+        import torch
+        import torch.distributed as dist
+        if group is not None:
+            dist.barrier(group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        if group is not None:
+            dist.barrier(group=group)
+        times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+        return out
+    return run
+
+
+def _disagg_child(rank, port, out_dir, runs):
+    """One rank of phase 3t: rank 0 is pod 0 (prefill), rank 1 pod 1
+    (decode), both on card 0, joined by gloo.  For each run (tag, arch,
+    smoke, dtype, batch, seq, chunk, pad): weights and prompts from the
+    seed, ``make_disagg_step``, then on pod 1 the same step's work in one
+    process (``prefill_chunked`` + ``decode_step``) on the same weights
+    for comparison.  Writes its results to ``out_dir/rank<r>.pt``; any
+    failed check raises, which fails the phase."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import disagg as D
+    from repro_torch.kernels.chunked_prefill_attention import (
+        chunked_prefill_attention as k5)
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as S
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=DISAGG_TIMEOUT_S))
+    mesh = DeviceMesh("cuda", torch.arange(2).reshape(2, 1, 1),
+                      mesh_dim_names=("pod", "data", "model"))
+    pod, pair = mesh.get_local_rank("pod"), mesh.get_group("pod")
+    # the handoff rests on gloo broadcasting CUDA tensors: try it first
+    probe = torch.full((1024,), float(rank + 1), device=device)
+    dist.broadcast(probe, src=0, group=pair)
+    check(probe.is_cuda and float(probe.sum()) == 1024.0,
+          f"phase 3t: gloo broadcast of a CUDA tensor gave "
+          f"{float(probe.sum())} on rank {rank}")
+    results = {}
+    for tag, arch, smoke, dtype, b, s, chunk, pad in runs:
+        cfg = dataclasses.replace(
+            get_smoke_config(arch) if smoke else get_config(arch),
+            dtype=dtype)
+        params = M.init_params(cfg, torch.Generator(device=device)
+                               .manual_seed(SEED + 30), device)
+        toks = torch.randint(0, cfg.vocab_size, (b, s), device=device,
+                             dtype=torch.int32, generator=torch.Generator(
+                                 device=device).manual_seed(SEED + 31))
+        ps = S.shard(params, mesh, S.param_shardings(params, mesh))
+        del params
+        cache = M.init_cache(cfg, b, s + pad, device=device)
+        cs = S.shard(cache, mesh, S.cache_shardings(cache, mesh))
+        del cache
+        tk = S.shard({"t": toks}, mesh, {"t": S.data_sharding(mesh)})["t"]
+        real = (M.prefill_chunked, M.decode_step, D.kv_handoff)
+        step = D.make_disagg_step(cfg, mesh, chunk_size=chunk)
+        # twice: a process's first step pays its one-time CUDA and cuBLAS
+        # set-up; the second is timed and counted (it prefills pod 0's
+        # zeroed cache again and overwrites pod 1's)
+        for _ in range(2):
+            times = {}
+            M.prefill_chunked = _timed(real[0], times, "prefill_s")
+            M.decode_step = _timed(real[1], times, "decode_s")
+            D.kv_handoff = _timed(real[2], times, "handoff_s", pair)
+            k5.launches = k5.tensor_core_launches = 0
+            dist.barrier()
+            try:
+                with torch.no_grad():
+                    first, dec, cs = step(ps, tk, cs)
+                torch.cuda.synchronize()
+            finally:
+                M.prefill_chunked, M.decode_step, D.kv_handoff = real
+        r = dict(times, launches=k5.launches,
+                 tc_launches=k5.tensor_core_launches, pod=pod,
+                 handoff_bytes=sum(S.local(x).numel()
+                                   * S.local(x).element_size()
+                                   for layer in cs for x in layer.values()))
+        r["handoff_bytes"] += first.to_local().numel() \
+            * first.to_local().element_size()
+        if pod == 0:
+            check(dec is None, "phase 3t: pod 0 decoded")
+            r["zero"] = all(float(S.local(x).abs().max()) == 0
+                            for layer in cs for x in layer.values())
+        else:
+            # the same work in one process on the same weights
+            plain = S.tree_map_with_path(lambda _, x: S.local(x), ps)
+            ref_cache = M.init_cache(cfg, b, s + pad, device=device)
+            with torch.no_grad():
+                ref_first, ref_cache = real[0](plain, cfg, toks, ref_cache,
+                                               chunk_size=chunk)
+                nt = torch.argmax(ref_first[:, -1], -1)[:, None].to(
+                    torch.int32)
+                ref_dec, ref_cache = real[1](
+                    plain, cfg, nt, ref_cache,
+                    torch.full((b,), s, dtype=torch.int32, device=device))
+            torch.cuda.synchronize()
+            got_first, got_dec = first.to_local(), dec.to_local()
+            pairs = [(got_first, ref_first), (got_dec, ref_dec)] + [
+                (S.local(layer[k]), ref_layer[k])
+                for layer, ref_layer in zip(cs, ref_cache) for k in layer]
+            r["first_err"] = float((got_first.float()
+                                    - ref_first.float()).abs().max())
+            r["dec_err"] = float((got_dec.float()
+                                  - ref_dec.float()).abs().max())
+            r["cache_err"] = max(float((a.float() - e.float()).abs().max())
+                                 for a, e in pairs[2:])
+            r["bitwise"] = all(torch.equal(a, e) for a, e in pairs)
+            r["limits"] = (limit(ref_first), limit(ref_dec),
+                           max(limit(e) for _, e in pairs[2:]))
+            r["same_tokens"] = bool(torch.equal(
+                got_dec[:, -1].argmax(-1), ref_dec[:, -1].argmax(-1)))
+            if smoke:
+                r["first"], r["dec"] = got_first.cpu(), got_dec.cpu()
+                r["params"] = S.tree_map_with_path(
+                    lambda _, x: S.local(x).cpu(), ps)
+                r["toks"] = toks.cpu()
+            del plain, ref_cache, pairs
+        results[tag] = r
+        del ps, cs, tk, first, dec
+        torch.cuda.empty_cache()
+        dist.barrier()
+    torch.save(results, Path(out_dir) / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def disagg_phase(card):
+    """Phase 3t: ``make_disagg_step`` on full-width qwen2-0.5b (bf16, 24
+    layers) across a (pod 2, data 1, model 1) mesh: two processes on the
+    one card, a gloo group, pod 0 prefilling 16 x 4,096 tokens in chunks
+    of 512, the KV handoff to pod 1, one decode step on pod 1; the step
+    runs twice in each process and the second is timed.  Pod 1's
+    first and decode logits and its cache equal the same work in one
+    process on the card (within ``limit``; bitwise printed), pod 0's
+    cache is zero, kernel 5 ran 24 x 8 times on pod 0 (all on its
+    tensor-core body) and never on pod 1.  Then the 2-layer f32 smoke
+    config the same way, pod 1's logits held against the one-process
+    CPU port: within DISAGG_F32_TOL, the same argmax.  Prints the
+    handoff's bytes, ms and GB/s and the prefill and decode ms."""
+    import socket
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    runs = [("3t", "qwen2_0_5b", False, "bfloat16",
+             *(DISAGG[k] for k in ("batch", "seq", "chunk", "pad"))),
+            ("3t-f32", "qwen2_0_5b", True, "float32",
+             *(DISAGG_SMOKE[k] for k in ("batch", "seq", "chunk", "pad")))]
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out_dir:
+        # a failure in either child raises here (and ends the other)
+        mp.spawn(_disagg_child, args=(port, out_dir, runs), nprocs=2,
+                 join=True)
+        res = [torch.load(Path(out_dir) / f"rank{r}.pt") for r in (0, 1)]
+    cfg = get_config("qwen2_0_5b")
+    p0, p1 = res[0]["3t"], res[1]["3t"]
+    n_chunks = DISAGG["seq"] // DISAGG["chunk"]
+    check(p0["pod"] == 0 and p1["pod"] == 1, "phase 3t: pods")
+    check(p0["zero"], "phase 3t: pod 0's cache is not zero after the "
+          "handoff")
+    check(p0["launches"] == cfg.n_layers * n_chunks == p0["tc_launches"],
+          f"phase 3t: pod 0 launched kernel 5 {p0['launches']} times "
+          f"({p0['tc_launches']} on tensor cores), not {cfg.n_layers} x "
+          f"{n_chunks}")
+    check(p1["launches"] == 0, f"phase 3t: pod 1 launched kernel 5 "
+          f"{p1['launches']} times")
+    lims = p1["limits"]
+    check(p1["first_err"] <= lims[0] and p1["dec_err"] <= lims[1]
+          and p1["cache_err"] <= lims[2] and p1["same_tokens"],
+          f"phase 3t: pod 1 differs from the one-process run: first "
+          f"{p1['first_err']}, decode {p1['dec_err']}, cache "
+          f"{p1['cache_err']} (limits {lims})")
+    gb = p1["handoff_bytes"] / 1e9
+    print(f"phase 3t: {cfg.name} full width, {cfg.n_layers} layers, bf16, "
+          f"make_disagg_step on (pod 2, data 1, model 1), two processes on "
+          f"one card over gloo: {DISAGG['batch']} x {DISAGG['seq']} tokens "
+          f"in chunks of {DISAGG['chunk']}; pod 0 prefill "
+          f"{p0['prefill_s'] * 1e3:.1f} ms ({p0['launches']} kernel-5 "
+          f"launches, pod 1 {p1['launches']}); handoff {gb:.4f} GB in "
+          f"{p1['handoff_s'] * 1e3:.1f} ms ({gb / p1['handoff_s']:.3f} "
+          f"GB/s); pod 1 decode {p1['decode_s'] * 1e3:.2f} ms; pod 1 vs "
+          f"one process: first logits {p1['first_err']:.3e}, decode "
+          f"{p1['dec_err']:.3e}, cache {p1['cache_err']:.3e}, bitwise "
+          f"{'yes' if p1['bitwise'] else 'no'}; pod 0's cache zero "
+          f"({card})")
+    # the 2-layer f32 smoke config: card (pod 1) against the CPU port
+    s1 = res[1]["3t-f32"]
+    scfg = dataclasses.replace(get_smoke_config("qwen2_0_5b"),
+                               dtype="float32")
+    check(res[0]["3t-f32"]["zero"] and s1["launches"] == 0
+          and res[0]["3t-f32"]["launches"] == scfg.n_layers * (
+              DISAGG_SMOKE["seq"] // DISAGG_SMOKE["chunk"]),
+          "phase 3t: smoke run launches / zero cache")
+    b, s = DISAGG_SMOKE["batch"], DISAGG_SMOKE["seq"]
+    with torch.no_grad():
+        cache = M.init_cache(scfg, b, s + DISAGG_SMOKE["pad"], device="cpu")
+        first, cache = M.prefill_chunked(s1["params"], scfg, s1["toks"],
+                                         cache,
+                                         chunk_size=DISAGG_SMOKE["chunk"])
+        nt = torch.argmax(first[:, -1], -1)[:, None].to(torch.int32)
+        dec, _ = M.decode_step(s1["params"], scfg, nt, cache,
+                               torch.full((b,), s, dtype=torch.int32))
+    e1 = float((s1["first"] - first).abs().max())
+    e2 = float((s1["dec"] - dec).abs().max())
+    same = bool(torch.equal(s1["first"][:, -1].argmax(-1),
+                            first[:, -1].argmax(-1))
+                and torch.equal(s1["dec"][:, -1].argmax(-1),
+                                dec[:, -1].argmax(-1)))
+    check(e1 <= DISAGG_F32_TOL and e2 <= DISAGG_F32_TOL and same,
+          f"phase 3t: f32 smoke, pod 1 on the card vs the CPU port: "
+          f"first {e1}, decode {e2}, argmax equal {same}")
+    print(f"phase 3t: {scfg.name} 2 layers f32, {b} x {s} tokens: pod 1 "
+          f"on the card vs one process on the CPU: first logits "
+          f"{e1:.3e}, decode logits {e2:.3e} (tolerance "
+          f"{DISAGG_F32_TOL:g}), argmax equal; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return p0["launches"]
+
+
 def time_kernel(name, cases, kern, plain, lib, work, dtype, card,
                 wrapper=None, body="cuda_core"):
     """Phase 5: mean ms per launch over ``cases`` (tuples of arguments)
@@ -4040,6 +4312,10 @@ def main() -> int:
         check_bwd_kernel(device, kernels, card))
     errs["chunked_prefill_attention"] = max(
         errs["chunked_prefill_attention"], fwd_err)
+    # 2i: kernel 5 at phase 3t's prefill chunks (the disaggregated step)
+    errs["chunked_prefill_attention"] = max(
+        errs["chunked_prefill_attention"], check_dense_cases(
+            "2i", disagg_shapes(cfg), device, kernels, SEED + 24))
 
     # -- phase 3: serve full-width qwen2-0.5b in bf16 --------------------
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -4060,6 +4336,8 @@ def main() -> int:
     async_phase(cfg, params, device, kernels, card, record3e)
     # -- phase 3k: the prefix cache through both runtimes ----------------
     prefix_phase(cfg, params, device, kernels, card)
+    # -- phase 3t: make_disagg_step, two processes on the card -----------
+    disagg_launches = disagg_phase(card)
     del params
     torch.cuda.empty_cache()
 
@@ -4339,6 +4617,20 @@ def main() -> int:
     print(f"phase 5: chunked_prefill_attention, {opt_cfg.name} whole "
           f"prompts (3o): {coupled_launches['chunked_prefill_attention']} "
           "launches in phase 3o's served run")
+    # kernel 5 on the disaggregated step's prefill (3t): 16 requests a
+    # call, chunks of 512 at DISAGG_CHUNKS of a cache of 4,104
+    sq, skv, b = (DISAGG["chunk"], DISAGG["seq"] + DISAGG["pad"],
+                  DISAGG["batch"])
+    time_kernel(
+        f"chunked_prefill_attention, {cfg.name} disagg prefill chunks (3t)",
+        [dense_served_case(cfg, b, sq, q0, skv, [q0 + sq] * b, dtype,
+                           device, gen) for q0 in DISAGG_CHUNKS],
+        chunked_prefill_attention, ref.chunked_prefill_attention,
+        sdpa_dense_call, lambda a: dense_work(*a), dtype, card,
+        chunked_prefill_attention)
+    print(f"phase 5: chunked_prefill_attention, {cfg.name} disagg prefill "
+          f"chunks (3t): {disagg_launches} launches on pod 0 in phase 3t's "
+          "run")
     # kernel 5 on the dense MLA prefill (3p's chunks of 512 at
     # MLA_CHUNKS, one request a call) and on the dense cross reads of 3q
     # (Llama-3.2-Vision: a chunk of 512 and the 8 decode slots over

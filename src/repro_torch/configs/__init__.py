@@ -22,6 +22,13 @@ ARCH_IDS = ("qwen2_0_5b", "llama_3_2_vision_11b", "phi4_mini_3_8b",
             "deepseek_67b", "granite_moe_3b_a800m", "opt_13b",
             "recurrentgemma_9b", "xlstm_1_3b", "opt_125m_cls")
 
+# the ten assigned architectures, in the reference's order (its
+# ``ARCH_IDS[:10]``; the port's ARCH_IDS lists them in another order)
+ASSIGNED_ARCHS = ("qwen2_0_5b", "llama_3_2_vision_11b", "phi4_mini_3_8b",
+                  "recurrentgemma_9b", "whisper_tiny", "xlstm_1_3b",
+                  "deepseek_v2_236b", "mistral_nemo_12b", "deepseek_67b",
+                  "granite_moe_3b_a800m")
+
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 
 

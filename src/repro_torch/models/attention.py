@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.models import blocks as B
+from repro_torch.models import sharding as SH
 from repro_torch.models.config import ModelConfig
 
 
@@ -65,16 +66,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # GQA self-attention module
 # ---------------------------------------------------------------------------
 def gqa_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions):
+    """(q, k, v) of x (b, s, d), each (b, s, heads, hd), RoPE applied.
+    Inside ``sharding.activation_sharding`` with a model axis that
+    divides the KV heads, each rank projects its own heads (the column
+    shards of wq / wk / wv are whole heads, and its query heads are the
+    groups of its KV heads); otherwise every rank holds all heads."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kvh, hd)
-    v = v.reshape(b, s, kvh, hd)
+    if SH.active():
+        mine = SH.heads_local(kvh)
+        q, k, v = (SH.col_heads(x, p[w], p[bias] if cfg.qkv_bias else None,
+                                n, hd, mine)
+                   for w, bias, n in (("wq", "bq", h), ("wk", "bk", kvh),
+                                      ("wv", "bv", kvh)))
+    else:
+        q = x @ p["wq"]
+        k = x @ p["wk"]
+        v = x @ p["wv"]
+        if cfg.qkv_bias:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q.reshape(b, s, h, hd)
+        k = k.reshape(b, s, kvh, hd)
+        v = v.reshape(b, s, kvh, hd)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -98,11 +111,66 @@ def _train_attention(q, k, v, window: int) -> torch.Tensor:
 def gqa_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                 window: int = 0) -> torch.Tensor:
     """Full-sequence (train-mode) GQA self-attention of x (b, s, d),
-    causal with the layer's window.  Returns (b, s, d)."""
+    causal with the layer's window.  Returns (b, s, d).
+
+    Under "attn2d" (heads that the model axis cannot shard, so every
+    rank holds them all) each rank attends its slice of the batch and
+    the slices are gathered again before ``wo``: 2D batch parallelism
+    in place of the reference's GSPMD constraints."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = gqa_qkv(p, cfg, x, positions)
-    return _train_attention(q, k, v, window).reshape(b, s, -1) @ p["wo"]
+    split = SH.opt_on("attn2d") and not SH.heads_local(cfg.n_kv_heads)
+    if split:
+        q, k, v = (SH.batch2d_constrain(t) for t in (q, k, v))
+    out = _train_attention(q, k, v, window)
+    if split:
+        out = SH.batch2d_release(out, b)
+    return SH.row(out.reshape(b, s, -1), p["wo"])
+
+
+def _softmax_pv(scores: torch.Tensor, pv, sharded: bool) -> torch.Tensor:
+    """``pv(softmax(scores))`` where ``pv`` contracts the probabilities
+    with the values of the same keys.  With ``sharded`` the last dim of
+    ``scores`` is this rank's shard of the keys: the row max, then the
+    row sum, then the PV partials are all-reduced over the model axis,
+    and no key leaves its rank."""
+    if not sharded:
+        return pv(torch.softmax(scores, dim=-1))
+    m = SH.all_reduce(scores.amax(-1, keepdim=True), op="max")
+    e = torch.exp(scores - m)
+    return SH.all_reduce(pv(e / SH.all_reduce(e.sum(-1, keepdim=True))))
+
+
+def seq_sharded_attn(q, k_cache, v_cache, *, q_offset: int, kv_len: int,
+                     window: int = 0) -> torch.Tensor:
+    """Masked partial-softmax attention over a sequence-sharded cache
+    (the "seqkv" optimization): each rank scores q against its local KV
+    shard; the softmax max / sum and the PV product reduce over the
+    sharded seq dim as small all-reduces — no cache all-gather.
+
+    q: (b, sq, h, hd) every head; caches: (b, S, kvh, hd / hd_v), plain
+    tensors or DTensors whose seq dim may shard over the model axis.
+    Keys at or past ``kv_len`` and after each query (and outside the
+    window) are masked.  As the reference: scores and PV accumulate in
+    f32 on inputs in the cache's dtype.  Plain torch ops, as the
+    reference's plain jnp.  Returns (b, sq, h, hd_v) in q's dtype."""
+    b, sq, h, hd = q.shape
+    kc, lo, _, sharded = SH.seq_shard(k_cache)
+    vc = SH.seq_shard(v_cache)[0]
+    kvh, hd_v = kc.shape[2], vc.shape[3]
+    qg = q.reshape(b, sq, kvh, h // kvh, hd).to(kc.dtype).float()
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, kc.float()) * hd ** -0.5
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    k_pos = lo + torch.arange(kc.shape[1], device=q.device)
+    mask = (q_pos[:, None] >= k_pos[None, :]) & (k_pos[None, :] < kv_len)
+    if window:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    scores = scores.masked_fill(~mask, ref.NEG_INF)
+    vf = vc.float()
+    out = _softmax_pv(scores, lambda pr: torch.einsum(
+        "bgrqk,bkgd->bqgrd", pr.to(vc.dtype).float(), vf), sharded)
+    return out.reshape(b, sq, h, hd_v).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -119,13 +187,19 @@ def gqa_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
     b, s, _ = x.shape
     positions = q_offset + torch.arange(s, device=x.device)[None, :]
     q, k, v = gqa_qkv(p, cfg, x, positions)
-    cache["k"][:, q_offset:q_offset + s] = k
-    cache["v"][:, q_offset:q_offset + s] = v
-    kv_len = torch.full((b,), q_offset + s, dtype=torch.int32,
-                        device=x.device)
-    out = ops.prefill_attention(q.contiguous(), cache["k"], cache["v"],
-                                kv_len, q_offset, window=window)
-    return out.reshape(b, s, -1) @ p["wo"], cache
+    SH.write_seq(cache["k"], k, q_offset)
+    SH.write_seq(cache["v"], v, q_offset)
+    if SH.opt_on("seqkv"):
+        out = seq_sharded_attn(q, cache["k"], cache["v"], q_offset=q_offset,
+                               kv_len=q_offset + s, window=window)
+    else:
+        # a sequence-sharded cache is gathered whole before kernel 5
+        kv_len = torch.full((b,), q_offset + s, dtype=torch.int32,
+                            device=x.device)
+        out = ops.prefill_attention(q.contiguous(), SH.gather_seq(cache["k"]),
+                                    SH.gather_seq(cache["v"]), kv_len,
+                                    q_offset, window=window)
+    return SH.row(out.reshape(b, s, -1), p["wo"]), cache
 
 
 def decode_attn_batched(q, k_cache, v_cache, pos, window: int = 0,
@@ -137,14 +211,18 @@ def decode_attn_batched(q, k_cache, v_cache, pos, window: int = 0,
 
     Plain torch ops, not a kernel's plain version: the reference's
     dense decode attention is plain jnp too, outside any Pallas kernel
-    (``blocks.py:_decode_attn_batched``)."""
-    b, s, kvh, hd = k_cache.shape
+    (``blocks.py:_decode_attn_batched``).  A cache whose seq dim shards
+    over the model axis (a DTensor) is read where it lies: the softmax
+    statistics and PV are all-reduced (sequence-parallel decode)."""
+    k_cache, lo, s, sharded = SH.seq_shard(k_cache)
+    v_cache = SH.seq_shard(v_cache)[0]
+    b, s_loc, kvh, hd = k_cache.shape
     h = q.shape[2]
     rep = h // kvh
     qg = q.reshape(b, 1, kvh, rep, hd).float()
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg,
                           k_cache.float()) * hd ** -0.5
-    idx = torch.arange(s, device=q.device)[None, :]
+    idx = lo + torch.arange(s_loc, device=q.device)[None, :]
     pb = pos.long()[:, None]
     if ring:
         valid = idx < torch.clamp(pb + 1, max=s)
@@ -153,8 +231,9 @@ def decode_attn_batched(q, k_cache, v_cache, pos, window: int = 0,
         if window:
             valid = valid & (idx > pb - window)
     scores = scores.masked_fill(~valid[:, None, None, None, :], ref.NEG_INF)
-    pr = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bgrqk,bkgd->bqgrd", pr, v_cache.float())
+    vf = v_cache.float()
+    out = _softmax_pv(scores, lambda pr: torch.einsum(
+        "bgrqk,bkgd->bqgrd", pr, vf), sharded)
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
@@ -249,6 +328,17 @@ def _mla_q(p: dict, cfg: ModelConfig, x: torch.Tensor, positions):
     m = cfg.mla
     b, s, _ = x.shape
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if SH.active():
+        # this rank's heads when the model axis divides them
+        mine = SH.heads_local(cfg.n_heads)
+        if "wq_a" in p:
+            q = SH.col_heads(_rms(SH.col_full(x, p["wq_a"]), p["q_norm"]),
+                             p["wq_b"], None, cfg.n_heads, qk, mine)
+        else:
+            q = SH.col_heads(x, p["wq"], None, cfg.n_heads, qk, mine)
+        q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                 -1)
+        return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
     if "wq_a" in p:
         q = _rms(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
     else:
@@ -261,20 +351,91 @@ def _mla_q(p: dict, cfg: ModelConfig, x: torch.Tensor, positions):
 def _mla_kv_latent(p: dict, cfg: ModelConfig, x: torch.Tensor, positions):
     """Per-token compressed latent: c_kv (b, s, lora), k_rope (b, s, rope)."""
     m = cfg.mla
-    c_kv, k_rope = (x @ p["wkv_a"]).split(
+    c_kv, k_rope = SH.col_full(x, p["wkv_a"]).split(
         [m.kv_lora_rank, m.qk_rope_head_dim], -1)
     c_kv = _rms(c_kv, p["kv_norm"])
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
     return c_kv, k_rope[:, :, 0, :]
 
 
+def _wkv_b(p: dict, cfg: ModelConfig) -> torch.Tensor:
+    """wkv_b as the heads this rank computes: its column shard when the
+    model axis divides the heads, else the whole weight."""
+    w = p["wkv_b"]
+    if SH.heads_local(cfg.n_heads):
+        return SH.weight(w)[0]
+    return SH.full(w)
+
+
 def _mla_absorb(p: dict, cfg: ModelConfig):
     """Split wkv_b into the absorbed up-projections W_uk (lora, h, nope)
-    and W_uv (lora, h, v)."""
+    and W_uv (lora, h, v), for this rank's heads under a model axis."""
     m = cfg.mla
-    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, cfg.n_heads,
-                               m.qk_nope_head_dim + m.v_head_dim)
+    wkv_b = _wkv_b(p, cfg).reshape(m.kv_lora_rank, -1,
+                                   m.qk_nope_head_dim + m.v_head_dim)
     return wkv_b.split([m.qk_nope_head_dim, m.v_head_dim], -1)
+
+
+def _latent_attn(p: dict, cfg: ModelConfig, q_nope, q_rope, ckv_cache,
+                 kr_cache, mask_fn, cast: bool) -> torch.Tensor:
+    """Absorbed MLA attention in the latent space: q_nope (b, sq, h, nope)
+    absorbed through W_uk, scores (q_lat . ckv + q_rope . krope) * scale
+    against every cache position (``mask_fn(k_pos)`` the live ones,
+    broadcastable to (b, h, sq, S)), PV on the latent, W_uv on the way
+    out; f32 sums.  ``cast``: the operands of the latent products in the
+    cache's dtype and of the W_uv product in W_uv's, as the reference's
+    ``_mla_absorbed_attn`` (preferred_element_type f32); else all f32, as
+    its ``mla_decode``.
+
+    Under a model axis: q holds this rank's heads and the latent caches
+    (DTensors) may shard their sequence.  Then the (small) absorbed
+    queries of every head are gathered, each rank scores its shard of
+    the latent, the softmax statistics and o_lat are all-reduced, and
+    each rank up-projects its own heads: no latent leaves its rank.
+    Returns (b, sq, h, v_head_dim) f32."""
+    ckv, lo, _, sharded = SH.seq_shard(ckv_cache)
+    kr = SH.seq_shard(kr_cache)[0]
+    w_uk, w_uv = _mla_absorb(p, cfg)
+    lat_t = ckv.dtype if cast else torch.float32
+    q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope.float(), w_uk.float())
+    spread = sharded and q_lat.shape[2] < cfg.n_heads
+    if spread:
+        q_lat, q_rope = SH.all_gather(q_lat, 2), SH.all_gather(q_rope, 2)
+    ckvf = ckv.float()
+    scores = torch.einsum("bqhl,bsl->bhqs", q_lat.to(lat_t).float(), ckvf)
+    scores = scores + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
+                                   kr.float())
+    scores = scores * mla_scale(cfg)
+    k_pos = lo + torch.arange(ckv.shape[1], device=ckv.device)
+    scores = scores.masked_fill(~mask_fn(k_pos), ref.NEG_INF)
+    o_lat = _softmax_pv(scores, lambda pr: torch.einsum(
+        "bhqs,bsl->bqhl", pr.to(lat_t).float(), ckvf), sharded)
+    if spread:
+        o_lat = SH.split(o_lat, 2)
+    uv_t = w_uv.dtype if cast else torch.float32
+    return torch.einsum("bqhl,lhv->bqhv", o_lat.to(uv_t).float(),
+                        w_uv.float())
+
+
+def _mla_absorbed_attn(p: dict, cfg: ModelConfig, q_nope, q_rope, ckv_cache,
+                       kr_cache, *, q_offset: int, kv_len: int,
+                       window: int = 0) -> torch.Tensor:
+    """Absorbed MLA attention for a chunk of queries directly in the
+    compressed latent space (the reference's, used by ``mla_prefill``
+    under "seqkv"): q_nope/q_rope (b, sq, h, ·) at positions q_offset +
+    [0, sq); caches (b, S, lora) / (b, S, rope), causal, keys below
+    kv_len, inside the window.  Plain torch ops, as the reference's plain
+    jnp.  Returns (b, sq, h, v_head_dim) f32."""
+    sq = q_nope.shape[1]
+    q_pos = q_offset + torch.arange(sq, device=q_nope.device)
+
+    def mask(k_pos):
+        m = (q_pos[:, None] >= k_pos[None, :]) & (k_pos[None, :] < kv_len)
+        if window:
+            m = m & (k_pos[None, :] > q_pos[:, None] - window)
+        return m[None, None]
+    return _latent_attn(p, cfg, q_nope, q_rope, ckv_cache, kr_cache, mask,
+                        cast=True)
 
 
 def mla_scale(cfg: ModelConfig) -> float:
@@ -299,23 +460,34 @@ def mla_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     kv_len.  Returns (attention output (b, s, d), cache)."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
     positions = q_offset + torch.arange(s, device=x.device)[None, :]
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_kv_latent(p, cfg, x, positions)
     n = q_offset + s
-    cache["ckv"][:, q_offset:n] = c_kv
-    cache["krope"][:, q_offset:n] = k_rope
-    kvb = (cache["ckv"][:, :n] @ p["wkv_b"]).reshape(
-        b, n, h, m.qk_nope_head_dim + m.v_head_dim)
+    SH.write_seq(cache["ckv"], c_kv, q_offset)
+    SH.write_seq(cache["krope"], k_rope, q_offset)
+    if SH.opt_on("seqkv"):
+        # absorbed latent attention over the seq-sharded compressed
+        # cache: scores / PV reduce over the sharded seq dim; no
+        # decompression of the whole cache and no all-gather of it
+        out = _mla_absorbed_attn(p, cfg, q_nope, q_rope, cache["ckv"],
+                                 cache["krope"], q_offset=q_offset,
+                                 kv_len=n, window=window)
+        return SH.row(out.reshape(b, s, -1).to(x.dtype), p["wo"]), cache
+    ckv = SH.gather_seq(cache["ckv"])[:, :n]
+    krope = SH.gather_seq(cache["krope"])[:, :n]
+    kvb = SH.col_heads(ckv, p["wkv_b"], None, cfg.n_heads,
+                       m.qk_nope_head_dim + m.v_head_dim,
+                       SH.heads_local(cfg.n_heads))
     k_nope, v = kvb.split([m.qk_nope_head_dim, m.v_head_dim], -1)
+    h = kvb.shape[2]
     q = torch.cat([q_nope, q_rope], -1)
-    k = torch.cat([k_nope, cache["krope"][:, :n, None, :].expand(
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
         b, n, h, m.qk_rope_head_dim)], -1)
     kv_len = torch.full((b,), n, dtype=torch.int32, device=x.device)
     out = ops.prefill_attention(q, k, v.contiguous(), kv_len, q_offset,
                                 window=window)
-    return out.reshape(b, s, -1) @ p["wo"], cache
+    return SH.row(out.reshape(b, s, -1), p["wo"]), cache
 
 
 def mla_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
@@ -327,17 +499,18 @@ def mla_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     s, d)."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
     positions = torch.arange(s, device=x.device)[None, :]
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_kv_latent(p, cfg, x, positions)
-    kvb = (c_kv @ p["wkv_b"]).reshape(b, s, h,
-                                      m.qk_nope_head_dim + m.v_head_dim)
+    kvb = SH.col_heads(c_kv, p["wkv_b"], None, cfg.n_heads,
+                       m.qk_nope_head_dim + m.v_head_dim,
+                       SH.heads_local(cfg.n_heads))
     k_nope, v = kvb.split([m.qk_nope_head_dim, m.v_head_dim], -1)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        b, s, h, m.qk_rope_head_dim)], -1)
-    return _train_attention(q, k, v, window).reshape(b, s, -1) @ p["wo"]
+        b, s, kvb.shape[2], m.qk_rope_head_dim)], -1)
+    return SH.row(_train_attention(q, k, v, window).reshape(b, s, -1),
+                  p["wo"])
 
 
 def mla_decode_attn(p: dict, cfg: ModelConfig, q_nope, q_rope, ckv, krope,
@@ -346,21 +519,16 @@ def mla_decode_attn(p: dict, cfg: ModelConfig, q_nope, q_rope, ckv, krope,
     f32: q_nope (b, 1, h, nope) absorbed through W_uk, scores against
     every cache position at or below ``pos`` (b, 1) (and inside the
     window), PV on the latent, W_uv on the way out.  ckv: (b, S, lora);
-    krope: (b, S, rope).  Returns (b, 1, h, v_head_dim) f32.  Plain torch
+    krope: (b, S, rope), each may be a DTensor sharding its sequence
+    (``_latent_attn``).  Returns (b, 1, h, v_head_dim) f32.  Plain torch
     ops, as the reference's plain jnp (``mla_decode``)."""
-    w_uk, w_uv = _mla_absorb(p, cfg)
-    ckv = ckv.float()
-    q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope.float(), w_uk.float())
-    scores = torch.einsum("bqhl,bsl->bhqs", q_lat, ckv)
-    scores += torch.einsum("bqhr,bsr->bhqs", q_rope.float(), krope.float())
-    scores *= mla_scale(cfg)
-    idx = torch.arange(ckv.shape[1], device=ckv.device)[None, :]
-    valid = idx <= pos
-    if window:
-        valid = valid & (idx > pos - window)
-    scores.masked_fill_(~valid[:, None, None, :], ref.NEG_INF)
-    o_lat = torch.einsum("bhqs,bsl->bqhl", torch.softmax(scores, -1), ckv)
-    return torch.einsum("bqhl,lhv->bqhv", o_lat, w_uv.float())
+    def mask(k_pos):
+        valid = k_pos[None, :] <= pos
+        if window:
+            valid = valid & (k_pos[None, :] > pos - window)
+        return valid[:, None, None, :]
+    return _latent_attn(p, cfg, q_nope, q_rope, ckv, krope, mask,
+                        cast=False)
 
 
 def mla_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,

@@ -24,6 +24,7 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as MLP
 from repro_torch.models import recurrent as R
+from repro_torch.models import sharding as SH
 from repro_torch.models.config import (ATTN, CROSS_ATTN, LOCAL_ATTN, MLSTM,
                                        RGLRU, SLSTM, ModelConfig)
 
@@ -243,15 +244,21 @@ def apply_block(kind: str, p: Dict[str, Any], cfg: ModelConfig,
             a, cache = fn(p["attn"], cfg, h, cache, pos, window)
         x = x + a
         if kind == CROSS_ATTN:
+            # under a mesh the cross sublayer has no tensor-parallel
+            # form: its weights and encoder K/V are gathered whole
+            pc = SH.full_tree(p["cross"]) if SH.active() else p["cross"]
             hc = rms_norm(x, p["norm_c"], cfg.norm_eps)
             if train or (mode == "prefill" and enc is not None):
-                ck, cv = A.cross_kv(p["cross"], cfg, enc)
+                ck, cv = A.cross_kv(pc, cfg, enc)
                 if not train:
-                    cache["ck"].copy_(ck)
-                    cache["cv"].copy_(cv)
+                    SH.assign(cache["ck"], ck)
+                    SH.assign(cache["cv"], cv)
+            elif SH.active():
+                full = SH.full_cache({"ck": cache["ck"], "cv": cache["cv"]})
+                ck, cv = full["ck"], full["cv"]
             else:
                 ck, cv = cache["ck"], cache["cv"]
-            x = x + A.cross_forward(p["cross"], cfg, hc, ck, cv)
+            x = x + A.cross_forward(pc, cfg, hc, ck, cv)
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
         if "moe" in p:
             m, aux = MLP.moe_forward(p["moe"], cfg, h2)
@@ -261,7 +268,7 @@ def apply_block(kind: str, p: Dict[str, Any], cfg: ModelConfig,
     if kind == RGLRU:
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         fn = R.rglru_decode if mode == "decode" else R.rglru_forward
-        r, new_cache = fn(p["rglru"], cfg, h, cache)
+        r, new_cache = _replicated(fn, p["rglru"], cfg, h, cache)
         x = x + r
         h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
         return (x + MLP.mlp_forward(p["mlp"], cfg, h2),
@@ -272,31 +279,39 @@ def apply_block(kind: str, p: Dict[str, Any], cfg: ModelConfig,
             fn = R.slstm_decode if mode == "decode" else R.slstm_forward
         else:
             fn = R.mlstm_decode if mode == "decode" else R.mlstm_forward
-        r, new_cache = fn(p["cell"], cfg, h, cache)
+        r, new_cache = _replicated(fn, p["cell"], cfg, h, cache)
         return x + r, None if train else new_cache, aux
     raise ValueError(kind)
 
 
+def _replicated(fn, p, cfg, h, cache):
+    """``fn(p, cfg, h, cache)`` of a recurrent mixer.  Under a mesh the
+    recurrent layers have no tensor-parallel form: the weights and the
+    state are gathered whole over the model axis, every rank runs the
+    layer on its batch, and the new state keeps this rank's shards."""
+    if not SH.active():
+        return fn(p, cfg, h, cache)
+    r, new = fn(SH.full_tree(p), cfg, h,
+                None if cache is None else SH.full_cache(cache))
+    return r, None if cache is None else SH.store_cache(cache, new)
+
+
 # --- batched decode with per-request positions ------------------------------
-def _scatter_kv(cache: torch.Tensor, new: torch.Tensor, slots: torch.Tensor
-                ) -> None:
-    """Write one token a request at per-request slots, in place.
-    cache: (b, S, ...), new: (b, 1, ...), slots: (b,) int."""
-    rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, slots.long()] = new[:, 0].to(cache.dtype)
-
-
 def _gqa_decode_batched(p, cfg, x, cache, pos, window):
+    """One-token GQA decode at per-request positions ``pos`` (b,): the
+    token's K/V written in place at its slot (the ring slot of a
+    windowed ring cache), then ``A.decode_attn_batched``.  Under a mesh
+    the cache leaves are DTensors: heads or sequence sharded."""
     b = x.shape[0]
     q, k, v = A.gqa_qkv(p, cfg, x, pos[:, None])
-    s_cache = cache["k"].shape[1]
+    s_cache = SH.seq_shard(cache["k"])[2]
     ring = window > 0 and s_cache <= window
     slots = pos % s_cache if ring else torch.clamp(pos, max=s_cache - 1)
-    _scatter_kv(cache["k"], k, slots)
-    _scatter_kv(cache["v"], v, slots)
+    SH.scatter_slots(cache["k"], k, slots)
+    SH.scatter_slots(cache["v"], v, slots)
     out = A.decode_attn_batched(q, cache["k"], cache["v"], pos, window,
                                 ring)
-    return out.reshape(b, 1, -1) @ p["wo"], cache
+    return SH.row(out.reshape(b, 1, -1), p["wo"]), cache
 
 
 def _mla_decode_batched(p, cfg, x, cache, pos, window):
@@ -314,10 +329,10 @@ def _mla_decode_batched(p, cfg, x, cache, pos, window):
     positions = pos[:, None]
     q_nope, q_rope = A._mla_q(p, cfg, x, positions)
     c_kv, k_rope = A._mla_kv_latent(p, cfg, x, positions)
-    s_cache = cache["ckv"].shape[1]
+    s_cache = SH.seq_shard(cache["ckv"])[2]
     slots = torch.clamp(pos, max=s_cache - 1)
-    _scatter_kv(cache["ckv"], c_kv, slots)
-    _scatter_kv(cache["krope"], k_rope, slots)
+    SH.scatter_slots(cache["ckv"], c_kv, slots)
+    SH.scatter_slots(cache["krope"], k_rope, slots)
     out = A.mla_decode_attn(p, cfg, q_nope, q_rope, cache["ckv"],
                             cache["krope"], pos.long()[:, None], window)
-    return out.reshape(b, 1, -1).to(x.dtype) @ p["wo"], cache
+    return SH.row(out.reshape(b, 1, -1).to(x.dtype), p["wo"]), cache

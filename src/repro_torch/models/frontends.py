@@ -24,6 +24,15 @@ def frontend_shape(cfg: ModelConfig, batch: int
     return (batch, cfg.encoder.n_ctx, cfg.encoder.d_model or cfg.d_model)
 
 
+def frontend_spec(cfg: ModelConfig, batch: int) -> Optional[torch.Tensor]:
+    """The stub frontend output's shape and dtype as a meta tensor (the
+    reference's ``ShapeDtypeStruct``), or None."""
+    shape = frontend_shape(cfg, batch)
+    if shape is None:
+        return None
+    return torch.empty(shape, dtype=torch_dtype(cfg), device="meta")
+
+
 def fake_frontend(cfg: ModelConfig, batch: int,
                   generator: torch.Generator, device="cuda"
                   ) -> Optional[torch.Tensor]:

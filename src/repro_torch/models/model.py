@@ -67,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import mlp as MLP
+from repro_torch.models import sharding as SH
 from repro_torch.models.config import ATTN, CROSS_ATTN, ModelConfig
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -128,11 +129,33 @@ def param_count(cfg: ModelConfig) -> int:
     return numel(init_params(cfg, None, device="meta"))
 
 
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """``init_params``'s tree on the meta device: every leaf's shape and
+    dtype, nothing allocated (the dry run's parameters)."""
+    return init_params(cfg, None, device="meta")
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: top_k of the routed experts), by the
+    reference's formula: every layer after the dense prefix counts
+    n_experts - top_k inactive experts of glu * d_model * expert_ff."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    moe_layers = sum(1 for i, _ in enumerate(cfg.layer_kinds)
+                     if i >= len(cfg.prefix))
+    ff = cfg.moe.expert_ff or cfg.d_ff
+    glu = 3 if cfg.mlp_act == "swiglu" else 2
+    per_expert = glu * cfg.d_model * ff
+    return total - moe_layers * (cfg.moe.n_experts - cfg.moe.top_k) \
+        * per_expert
+
+
 # ---------------------------------------------------------------------------
 # embeddings / heads
 # ---------------------------------------------------------------------------
 def _embed(params, cfg: ModelConfig, tokens, positions):
-    h = params["embed"][tokens.long()]
+    h = SH.embed_lookup(params["embed"], tokens.long())
     if cfg.n_positions:
         idx = torch.clamp(positions.long(), max=cfg.n_positions - 1)
         h = h + params["pos_embed"][idx]
@@ -140,9 +163,22 @@ def _embed(params, cfg: ModelConfig, tokens, positions):
 
 
 def _head(params, cfg: ModelConfig, h):
+    """Final norm and the LM head; under a mesh whose model axis divides
+    the vocab, this rank's vocab columns (``_out`` wraps them)."""
     h = B.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return (h @ params["embed"].T if cfg.tie_embeddings
-            else h @ params["lm_head"])
+    if cfg.tie_embeddings:
+        return SH.head_logits(h, params["embed"], transposed=True)[0]
+    return SH.head_logits(h, params["lm_head"], transposed=False)[0]
+
+
+def _out(logits, cfg: ModelConfig, batch_sharded: bool):
+    """An entry point's logits: as they are outside a mesh; under one a
+    DTensor, batch over the batch axes when the inputs were, vocab over
+    the model axis when the head sharded it."""
+    if not SH.active():
+        return logits
+    vocab = logits.ndim - 1 if logits.shape[-1] < cfg.vocab_size else None
+    return SH.wrap(logits, batch_sharded, vocab)
 
 
 def encoder_forward(params, cfg: ModelConfig, enc_embeds):
@@ -153,7 +189,10 @@ def encoder_forward(params, cfg: ModelConfig, enc_embeds):
     h = enc_embeds
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device)[None, :]
-    for p in params["encoder"]["blocks"]:
+    enc = params["encoder"]
+    if SH.active():     # no tensor-parallel form: gathered whole
+        enc = SH.full_tree(enc)
+    for p in enc["blocks"]:
         n = B.rms_norm(h, p["norm1"], cfg.norm_eps)
         attn = A.promoted(p["attn"], n.dtype)
         q, k, v = A.gqa_qkv(attn, cfg, n, positions)
@@ -161,7 +200,7 @@ def encoder_forward(params, cfg: ModelConfig, enc_embeds):
         h = h + a.reshape(b, s, -1) @ attn["wo"]
         n2 = B.rms_norm(h, p["norm2"], cfg.norm_eps)
         h = h + MLP.mlp_forward(A.promoted(p["mlp"], n2.dtype), cfg, n2)
-    return B.rms_norm(h, params["encoder"]["norm"], cfg.norm_eps)
+    return B.rms_norm(h, enc["norm"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +215,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     enc_ctx = cfg.encoder.n_ctx if cfg.encoder is not None else 0
     return [B.init_block_cache(kind, cfg, batch, max_seq, torch_dtype(cfg),
                                device, enc_ctx=enc_ctx, ring=ring)
+            for kind in cfg.layer_kinds]
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+                   ring: bool = False) -> List[Dict[str, Any]]:
+    """``init_cache``'s list on the meta device, its leaves in ``dtype``
+    (the model's by default): shapes and dtypes, nothing allocated."""
+    enc_ctx = cfg.encoder.n_ctx if cfg.encoder is not None else 0
+    return [B.init_block_cache(kind, cfg, batch, max_seq,
+                               dtype or torch_dtype(cfg), "meta",
+                               enc_ctx=enc_ctx, ring=ring)
             for kind in cfg.layer_kinds]
 
 
@@ -208,23 +258,39 @@ def _run_layers(params, cfg: ModelConfig, h, *, mode: str, caches=None,
     train = mode == "train"
     remat = train and torch.is_grad_enabled()
     new_caches, auxes = [], []
+    # "seqact": the residual stream holds this rank's seq shard between
+    # layers; each layer gathers it on entry
+    seqact = SH.seqact_applies(h)
+    h = SH.act_constrain(h)
     for i, (kind, p) in enumerate(zip(cfg.layer_kinds, params["layers"])):
         c = None if caches is None else caches[i]
         kw = dict(mode=mode, cache=c, pos=pos, q_offset=q_offset, enc=enc)
         if remat:
-            h, nc, a = checkpoint(B.apply_block, kind, p, cfg, h,
+            h, nc, a = checkpoint(_layer, kind, p, cfg, h, seqact,
                                   use_reentrant=False, **kw)
         else:
-            h, nc, a = B.apply_block(kind, p, cfg, h, **kw)
+            h, nc, a = _layer(kind, p, cfg, h, seqact, **kw)
         if train and a is not None:
             auxes.append(a)
         new_caches.append(nc)
+    if seqact:
+        h = SH.all_gather(h, 1)
     aux = None
     if train:
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for a in auxes:
             aux = aux + a
     return h, (None if caches is None else new_caches), aux
+
+
+def _layer(kind, p, cfg: ModelConfig, h, seqact: bool, **kw):
+    """``B.apply_block`` with the residual stream constrained after it
+    (the reference's ``act_constrain``); a seq-sharded input ("seqact")
+    is gathered first."""
+    if seqact:
+        h = SH.all_gather(h, 1)
+    h, nc, a = B.apply_block(kind, p, cfg, h, **kw)
+    return SH.act_constrain(h), nc, a
 
 
 def _encode(params, cfg: ModelConfig, enc_embeds):
@@ -241,14 +307,19 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, q_offset: int = 0,
     absolute start ``q_offset`` (a host int); ``enc_embeds`` (b,
     enc_ctx, d), the frontend embeddings, make the cross layers project
     and store their encoder K/V (a request's first chunk).  Returns
-    (logits of the last position (b, 1, V), cache)."""
+    (logits of the last position (b, 1, V), cache).  Inside
+    ``sharding.activation_sharding`` params, cache and inputs are
+    DTensors (``sharding.shard``) and the logits come back as one."""
+    bsh = False
+    if SH.active():
+        params, (tokens, enc_embeds), bsh = SH.entry(params, tokens, enc_embeds)
     b, s = tokens.shape
     positions = q_offset + torch.arange(s, device=tokens.device)[None, :]
     h = _embed(params, cfg, tokens, positions.expand(b, s))
     h, cache, _ = _run_layers(params, cfg, h, mode="prefill", caches=cache,
                               q_offset=q_offset,
                               enc=_encode(params, cfg, enc_embeds))
-    return _head(params, cfg, h[:, -1:]), cache
+    return _out(_head(params, cfg, h[:, -1:]), cfg, bsh), cache
 
 
 def prefill_chunked(params, cfg: ModelConfig, tokens, cache, *,
@@ -257,7 +328,11 @@ def prefill_chunked(params, cfg: ModelConfig, tokens, cache, *,
     tokens: (b, S) with S % chunk_size == 0 (padded by the caller).
     With ``enc_embeds`` the encoder runs once and every chunk's cross
     layers project its output, as in the reference.
-    Returns (logits of the last position (b, 1, V), cache)."""
+    Returns (logits of the last position (b, 1, V), cache); sharded as
+    ``prefill`` inside ``sharding.activation_sharding``."""
+    bsh = False
+    if SH.active():
+        params, (tokens, enc_embeds), bsh = SH.entry(params, tokens, enc_embeds)
     b, s = tokens.shape
     if s % chunk_size:
         raise ValueError("pad prompts to a multiple of ChunkSize")
@@ -269,16 +344,20 @@ def prefill_chunked(params, cfg: ModelConfig, tokens, cache, *,
         h = _embed(params, cfg, chunk, positions.expand(b, chunk_size))
         h, cache, _ = _run_layers(params, cfg, h, mode="prefill",
                                   caches=cache, q_offset=start, enc=enc)
-    return _head(params, cfg, h[:, -1:]), cache
+    return _out(_head(params, cfg, h[:, -1:]), cfg, bsh), cache
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, pos):
     """tokens: (b, 1); pos: (b,) current positions.  Returns (logits
-    (b, 1, V), cache)."""
+    (b, 1, V), cache); sharded as ``prefill`` inside
+    ``sharding.activation_sharding``."""
+    bsh = False
+    if SH.active():
+        params, (tokens, pos), bsh = SH.entry(params, tokens, pos)
     h = _embed(params, cfg, tokens, pos[:, None])
     h, cache, _ = _run_layers(params, cfg, h, mode="decode", caches=cache,
                               pos=pos)
-    return _head(params, cfg, h), cache
+    return _out(_head(params, cfg, h), cfg, bsh), cache
 
 
 def decode_step_greedy(params, cfg: ModelConfig, tokens, cache, pos):
@@ -295,13 +374,18 @@ def forward_train(params, cfg: ModelConfig, tokens, *, enc_embeds=None):
     """tokens: (b, s) int -> (logits (b, s, V), aux loss (f32 scalar)).
     ``enc_embeds`` (b, enc_ctx, d): the frontend embeddings of a model
     with cross layers, run through the encoder stack for an
-    encoder-decoder."""
+    encoder-decoder.  Inside ``sharding.activation_sharding`` the logits
+    are a DTensor (vocab-sharded when the head is) and the aux loss the
+    global one."""
+    bsh = False
+    if SH.active():
+        params, (tokens, enc_embeds), bsh = SH.entry(params, tokens, enc_embeds)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     h = _embed(params, cfg, tokens, positions)
     h, _, aux = _run_layers(params, cfg, h, mode="train",
                             enc=_encode(params, cfg, enc_embeds))
-    return _head(params, cfg, h), aux
+    return _out(_head(params, cfg, h), cfg, bsh), aux
 
 
 def classify(params, cfg: ModelConfig, tokens, lengths):
@@ -317,7 +401,7 @@ def classify(params, cfg: ModelConfig, tokens, lengths):
             ).to(h.dtype)
     pooled = (h * mask[..., None]).sum(1) / torch.clamp(
         mask.sum(1, keepdim=True), min=1.0)
-    return pooled @ params["cls_head"]
+    return SH.col_full(pooled, params["cls_head"])
 
 
 # ---------------------------------------------------------------------------

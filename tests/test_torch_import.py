@@ -123,3 +123,36 @@ def test_training_slice_modules_stand_alone():
     data = set(_imported_roots(PORT / "train" / "data.py"))
     assert {"repro_torch.core.predictor",
             "repro_torch.runtime.workload"} <= data, data
+
+
+def test_multi_device_modules_stand_alone():
+    """The multi-device layer (sharding rules, the pod handoff, the
+    meshes, the specs, op_cost and the dry run) imports with JAX and
+    ``repro`` blocked, without joining a process group; the only
+    ``torch.testing._internal`` import of the port is the fake group of
+    the dry run, inside ``launch/mesh.py`` or ``launch/dryrun.py``."""
+    mods = ("repro_torch.models.sharding", "repro_torch.core.disagg",
+            "repro_torch.launch.mesh", "repro_torch.launch.specs",
+            "repro_torch.launch.op_cost", "repro_torch.launch.dryrun")
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for n in {mods!r}:\n"
+            "    importlib.import_module(n)\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    allowed = {PORT / "launch" / "mesh.py", PORT / "launch" / "dryrun.py"}
+    bad = []
+    for f in _port_files():
+        for name in _imported_roots(f):
+            if name.startswith("torch.testing._internal") and (
+                    f not in allowed or name != (
+                        "torch.testing._internal.distributed.fake_pg")):
+                bad.append(f"{f.relative_to(ROOT)}: {name}")
+    assert not bad, bad
