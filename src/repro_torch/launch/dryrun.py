@@ -63,8 +63,9 @@ def _train_step(cfg, mesh, batch_axes, opts, micro: int):
     gradients), data-parallel averaging of the gradients (all-reduce of
     the leaves replicated over the batch axes; the FSDP leaves' gradients
     come reduce-scattered out of their gathers), then AdamW on the local
-    shards.  It exists for the dry run's accounting: the clip norm is
-    taken over this rank's shards."""
+    shards.  The loss and its gradients on a gloo group equal unsharded
+    autograd (tests/test_torch_sharding.py); the clip norm is taken over
+    this rank's shards, which is enough for the dry run's accounting."""
     from torch.distributed.tensor import DTensor
     opt_cfg = opt.AdamWConfig()
 

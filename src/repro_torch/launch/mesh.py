@@ -10,8 +10,6 @@ runs and every collective returns at once.
 """
 from __future__ import annotations
 
-import torch
-
 
 def start_fake_group(world_size: int = 512) -> None:
     """A fake process group of ``world_size`` ranks, this process rank 0
@@ -27,7 +25,7 @@ def start_fake_group(world_size: int = 512) -> None:
 
 def _mesh(device_type: str, shape, axes):
     import torch.distributed as dist
-    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.device_mesh import init_device_mesh
     n = 1
     for s in shape:
         n *= s
@@ -38,8 +36,8 @@ def _mesh(device_type: str, shape, axes):
             f"process group has {have}: start one with "
             f"torch.distributed.init_process_group, or for the dry run "
             f"repro_torch.launch.mesh.start_fake_group({max(n, 512)})")
-    ids = torch.arange(n).reshape(shape)
-    return DeviceMesh(device_type, ids, mesh_dim_names=tuple(axes))
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
 
 
 def make_production_mesh(*, multi_pod: bool = False,

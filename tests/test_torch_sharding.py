@@ -3,11 +3,12 @@ rules (placements against the reference's PartitionSpecs, for every
 registry config at full size on meta), ``seq_sharded_attn`` and
 ``_mla_absorbed_attn`` on the same numpy inputs, and the sharded forward
 (``prefill_chunked`` + ``decode_step`` on a gloo data 2 x model 2 group
-in four processes) against the reference's logits.
+in four processes) against the reference's logits; ``forward_train``
+there too, and the sharded loss's gradients against unsharded autograd.
 
 f32 throughout.  Tolerances: attention functions 1e-5 absolute (f32
 sums in another order); sharded logits 2e-5 absolute (all-reduced
-partial sums of O(1) logits).
+partial sums of O(1) logits); gradients 1e-5 of each leaf's largest.
 """
 import dataclasses
 import os
@@ -27,6 +28,7 @@ from repro.configs import get_smoke_config as ref_smoke
 from repro.models import attention as RA
 from repro.models import model as RM
 from repro.models import sharding as RS
+from repro_torch import params as PP
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
@@ -352,6 +354,38 @@ WORKER = textwrap.dedent("""
                 dec, cs = M.decode_step(ps, cfg, ins["n"], cs, ins["p"])
             out[name] = (first.full_tensor().numpy(),
                          dec.full_tensor().numpy())
+        for name, arch, over, opts, tree, toks, labels in job.get(
+                "train", ()):
+            # forward_train, the vocab-parallel loss and its gradients
+            from torch.distributed.tensor import DTensor
+            cfg = dataclasses.replace(get_smoke_config(arch),
+                                      dtype="float32", **over)
+            params = PP.from_reference(tree, cfg, device="cpu")
+            ps = S.shard(params, mesh, S.param_shardings(params, mesh))
+            flat = S.leaves(ps)
+            loc = [S.local(p).detach().requires_grad_(True) for p in flat]
+            it = iter(loc)
+            dps = S.tree_map_with_path(lambda _, p: DTensor.from_local(
+                next(it), p.device_mesh, p.placements, run_check=False,
+                shape=p.shape, stride=p.stride()), ps)
+            ins = S.shard({"t": torch.from_numpy(toks),
+                           "l": torch.from_numpy(labels)}, mesh,
+                          {"t": S.data_sharding(mesh),
+                           "l": S.data_sharding(mesh)})
+            with S.activation_sharding(mesh, ("data",), opts=opts):
+                logits, aux = M.forward_train(dps, cfg, ins["t"])
+                loss = S.vocab_parallel_nll(logits.to_local(),
+                                            S.local(ins["l"]),
+                                            cfg.vocab_size) + aux
+                grads = torch.autograd.grad(loss, loc)
+                grads = [S.all_reduce(g, "data") / 2 for g in grads]
+                loss = S.all_reduce(loss.detach(), "data") / 2
+            full = [DTensor.from_local(g, p.device_mesh, p.placements,
+                                       run_check=False, shape=p.shape,
+                                       stride=p.stride()).full_tensor()
+                    for g, p in zip(grads, flat)]
+            out[name] = (logits.detach().full_tensor().numpy(),
+                         float(loss), [g.numpy() for g in full])
         if job.get("attn"):
             q, k, v, q_off, kv_len = job["attn"]
             # the cache's sequence over the model axis only
@@ -396,53 +430,12 @@ def run_gloo(tmp_path, job, name="job"):
     return pickle.load(open(path + ".out", "rb"))
 
 
-@pytest.fixture(scope="module")
-def gloo_forward(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("gloo_fwd")
-    cases, refs, trees = [], {}, {}
-    rng = np.random.default_rng(0)
-    for name, arch, over, opts in CASES:
-        key = (arch, tuple(sorted(over.items())))
-        cfg = _ref_cfg(arch, over)
-        if key not in trees:
-            params = RM.init_params(jax.random.PRNGKey(0), cfg)
-            toks = rng.integers(0, cfg.vocab_size, (B, SEQ)).astype(np.int32)
-            trees[key] = (jax.tree.map(np.asarray, params), toks,
-                          _ref_run(cfg, params, toks))
-        tree, toks, ref = trees[key]
-        refs[name] = ref
-        cases.append((name, arch, over, opts, tree, toks, ref[2]))
-    q = rng.standard_normal((2, 8, 4, 16)).astype(np.float32)
-    k = rng.standard_normal((2, 32, 2, 16)).astype(np.float32)
-    v = rng.standard_normal((2, 32, 2, 16)).astype(np.float32)
-    job = dict(data=2, model=2, chunk=CHUNK, cases=cases,
-               attn=(q, k, v, 12, 20))
-    out = run_gloo(tmp, job)
-    return out, refs, (q, k, v)
-
-
-@pytest.mark.parametrize("name", [c[0] for c in CASES])
-def test_sharded_forward_matches_reference(gloo_forward, name):
-    out, refs, _ = gloo_forward
-    first, dec = out[name]
-    r_first, r_dec, _ = refs[name]
-    np.testing.assert_allclose(first, r_first, rtol=0, atol=ATOL_LOGITS)
-    np.testing.assert_allclose(dec, r_dec, rtol=0, atol=ATOL_LOGITS)
-
-
-def test_seq_sharded_attn_on_gloo_reduces_without_gathering(gloo_forward):
-    out, _, (q, k, v) = gloo_forward
-    got, comm = out["attn"]
-    want = A.seq_sharded_attn(torch.from_numpy(q), torch.from_numpy(k),
-                              torch.from_numpy(v), q_offset=12, kv_len=20)
-    np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=ATOL_ATTN)
-    # the row max, the row sum and the PV partials: three all-reduces
-    assert comm == {"all_reduce": 3}, comm
-
-
-# ---------------------------------------------------------------------------
-# MoE: the group size follows the data axis, as in the reference
-# ---------------------------------------------------------------------------
+# MoE: the group size follows the data axis, as in the reference.
+# Granite-MoE smoke with capacity factor 1 (tokens are dropped): at data
+# 2 the reference's groups are one data shard's tokens, so its logits
+# differ from the unsharded ones; the port on gloo (data 2 x model 2,
+# experts 2 a rank) must equal the reference's sharded run, which runs
+# in a subprocess with two JAX CPU devices.
 MOE_REF = textwrap.dedent("""
     import os
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
@@ -482,11 +475,11 @@ MOE_REF = textwrap.dedent("""
 """)
 
 
-def test_moe_group_size_follows_the_data_axis(tmp_path):
-    """Granite-MoE smoke with capacity factor 1 (tokens are dropped): at
-    data 2 the reference's groups are one data shard's tokens, so its
-    logits differ from the unsharded ones; the port on gloo (data 2 x
-    model 2, experts 2 a rank) equals the reference's sharded run."""
+
+
+def _moe_case(tmp):
+    """(the gloo job's MoE case, the reference's unsharded and sharded
+    (first, decode, next token))."""
     cfg = dataclasses.replace(ref_smoke("granite_moe_3b_a800m"),
                               dtype="float32")
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -495,7 +488,7 @@ def test_moe_group_size_follows_the_data_axis(tmp_path):
     tree = jax.tree.map(np.asarray, params)
     toks = np.random.default_rng(3).integers(
         0, cfg.vocab_size, (B, SEQ)).astype(np.int32)
-    path = str(tmp_path / "moe.pkl")
+    path = str(tmp / "moe.pkl")
     pickle.dump(dict(tree=tree, toks=toks, cf=1.0, chunk=CHUNK),
                 open(path, "wb"))
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
@@ -504,13 +497,106 @@ def test_moe_group_size_follows_the_data_axis(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     ref = pickle.load(open(path + ".out", "rb"))
+    case = ("moe", "granite_moe_3b_a800m",
+            {"moe": dataclasses.replace(get_smoke_config(
+                "granite_moe_3b_a800m").moe, capacity_factor=1.0)}, (),
+            tree, toks, ref[True][2])
+    return case, ref
+
+
+@pytest.fixture(scope="module")
+def gloo_forward(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("gloo_fwd")
+    cases, refs, trees = [], {}, {}
+    rng = np.random.default_rng(0)
+    for name, arch, over, opts in CASES:
+        key = (arch, tuple(sorted(over.items())))
+        cfg = _ref_cfg(arch, over)
+        if key not in trees:
+            params = RM.init_params(jax.random.PRNGKey(0), cfg)
+            toks = rng.integers(0, cfg.vocab_size, (B, SEQ)).astype(np.int32)
+            trees[key] = (jax.tree.map(np.asarray, params), toks,
+                          _ref_run(cfg, params, toks))
+        tree, toks, ref = trees[key]
+        refs[name] = ref
+        cases.append((name, arch, over, opts, tree, toks, ref[2]))
+    q = rng.standard_normal((2, 8, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 32, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 32, 2, 16)).astype(np.float32)
+    train, train_refs = [], {}
+    for name, over, opts in TRAIN_CASES:
+        cfg = _ref_cfg("qwen2_0_5b", over)
+        params = RM.init_params(jax.random.PRNGKey(1), cfg)
+        toks = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+        labels = np.roll(toks, -1, axis=1)
+        logits, _ = RM.forward_train(params, cfg, jnp.asarray(toks))
+        tree = jax.tree.map(np.asarray, params)
+        train_refs[name] = (np.asarray(logits), tree, toks, labels)
+        train.append((name, "qwen2_0_5b", over, opts, tree, toks, labels))
+    moe, moe_ref = _moe_case(tmp)
+    job = dict(data=2, model=2, chunk=CHUNK, cases=cases + [moe],
+               train=train, attn=(q, k, v, 12, 20))
+    out = run_gloo(tmp, job)
+    return out, refs, (q, k, v), train_refs, moe_ref
+
+
+@pytest.mark.parametrize("name", [c[0] for c in CASES])
+def test_sharded_forward_matches_reference(gloo_forward, name):
+    out, refs, *_ = gloo_forward
+    first, dec = out[name]
+    r_first, r_dec, _ = refs[name]
+    np.testing.assert_allclose(first, r_first, rtol=0, atol=ATOL_LOGITS)
+    np.testing.assert_allclose(dec, r_dec, rtol=0, atol=ATOL_LOGITS)
+
+
+def test_seq_sharded_attn_on_gloo_reduces_without_gathering(gloo_forward):
+    out, _, (q, k, v), *_ = gloo_forward
+    got, comm = out["attn"]
+    want = A.seq_sharded_attn(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), q_offset=12, kv_len=20)
+    np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=ATOL_ATTN)
+    # the row max, the row sum and the PV partials: three all-reduces
+    assert comm == {"all_reduce": 3}, comm
+
+
+# forward_train on gloo: "attn2d" splits the batch over the model axis
+# when the heads cannot shard (one KV head), "seqact" shards the residual
+# stream's sequence; logits against the reference's forward_train, the
+# sharded loss's gradients (vocab-parallel cross entropy, Megatron's
+# operators, data-parallel averaging) against the port's unsharded
+# autograd, which tests/test_torch_train.py holds against jax.grad
+TRAIN_CASES = [("train", {}, ()), ("train_attn2d", {"n_kv_heads": 1},
+                                    ("attn2d",)),
+               ("train_seqact", {}, ("seqact",))]
+GRAD_RTOL = 1e-5        # of each leaf's largest |gradient|
+
+
+@pytest.mark.parametrize("name", [c[0] for c in TRAIN_CASES])
+def test_sharded_train_forward_and_grads(gloo_forward, name):
+    from repro_torch.train import trainer
+    out, _, _, train_refs, _ = gloo_forward
+    logits, loss, grads = out[name]
+    ref_logits, tree, toks, labels = train_refs[name]
+    np.testing.assert_allclose(logits, ref_logits, rtol=0,
+                               atol=ATOL_LOGITS)
+    over = next(c[1] for c in TRAIN_CASES if c[0] == name)
+    cfg = dataclasses.replace(get_smoke_config("qwen2_0_5b"),
+                              dtype="float32", **over)
+    params = PP.from_reference(tree, cfg, device="cpu")
+    g, (total, _) = trainer.grads_of(lambda p: trainer.lm_loss(
+        p, cfg, torch.from_numpy(toks), torch.from_numpy(labels)), params)
+    assert abs(loss - float(total)) <= 1e-5 * abs(float(total))
+    want = S.leaves(g)
+    assert len(want) == len(grads)
+    for got, exp in zip(grads, want):
+        exp = exp.numpy()
+        np.testing.assert_allclose(got, exp, rtol=0, atol=GRAD_RTOL * max(
+            1.0, float(np.abs(exp).max())))
+
+
+def test_moe_group_size_follows_the_data_axis(gloo_forward):
+    out, *_, ref = gloo_forward
     assert not np.allclose(ref[True][0], ref[False][0], atol=1e-3)
-    job = dict(data=2, model=2, chunk=CHUNK, cases=[
-        ("moe", "granite_moe_3b_a800m",
-         {"moe": dataclasses.replace(get_smoke_config(
-             "granite_moe_3b_a800m").moe, capacity_factor=1.0)}, (),
-         tree, toks, ref[True][2])])
-    out = run_gloo(tmp_path, job, "moe_job")
     first, dec = out["moe"]
     np.testing.assert_allclose(first, ref[True][0], rtol=0,
                                atol=ATOL_LOGITS)
