@@ -144,10 +144,11 @@ Phases, in order (any failure exits non-zero):
    gloo (``torch.multiprocessing.spawn``): pod 0 prefills 16 x 4,096
    tokens in chunks of 512, hands its cache and last logits to pod 1
    (a broadcast within the pod pair; gloo's broadcast of a CUDA tensor
-   is tried first), pod 1 decodes one token.  Pod 1's first and decode
-   logits and its cache equal the same work in one process on the card,
-   pod 0's cache is zero, kernel 5 ran 24 x 8 times on pod 0 and never
-   on pod 1; then the 2-layer f32 smoke config the same way, pod 1's
+   is tried first), pod 1 decodes one token; twice, both caches zeroed
+   before each run.  In each run pod 1's first and decode logits and its
+   cache equal the same work in one process on the card, pod 1's cache
+   leaves are nonzero and pod 0's zero, kernel 5 ran 24 x 8 times on
+   pod 0 and never on pod 1; then the 2-layer f32 smoke config the same way, pod 1's
    logits against the one-process CPU port (1e-5, the same argmax).
    Handoff bytes, ms and GB/s, prefill and decode ms.  A failure in
    either process fails the phase.  Every kernel's launch counter is
@@ -3921,14 +3922,50 @@ def _timed(fn, times, key, group=None):
     return run
 
 
+def _disagg_check(r, first, dec, cs, ref):
+    """One disaggregated step's result on this rank, into ``r``: the
+    handoff's bytes; on pod 0 (``ref`` None) whether every cache leaf is
+    zero; on pod 1 its logits and cache against ``ref`` = (first logits,
+    decode logits, cache) of the one-process run, and whether every
+    cache leaf is nonzero."""
+    import torch
+    from repro_torch.models import sharding as S
+    leaves = [S.local(x) for layer in cs for x in layer.values()]
+    loc = first.to_local()
+    r["handoff_bytes"] = sum(x.numel() * x.element_size() for x in leaves) \
+        + loc.numel() * loc.element_size()
+    if ref is None:
+        check(dec is None, "phase 3t: pod 0 decoded")
+        r["zero"] = all(float(x.abs().max()) == 0 for x in leaves)
+        return r
+    ref_first, ref_dec, ref_cache = ref
+    got_dec = dec.to_local()
+    pairs = [(loc, ref_first), (got_dec, ref_dec)] + [
+        (S.local(layer[k]), ref_layer[k])
+        for layer, ref_layer in zip(cs, ref_cache) for k in layer]
+    r["nonzero"] = all(bool(x.any()) for x in leaves)
+    r["first_err"] = float((loc.float() - ref_first.float()).abs().max())
+    r["dec_err"] = float((got_dec.float() - ref_dec.float()).abs().max())
+    r["cache_err"] = max(float((a.float() - e.float()).abs().max())
+                         for a, e in pairs[2:])
+    r["bitwise"] = all(torch.equal(a, e) for a, e in pairs)
+    r["limits"] = (limit(ref_first), limit(ref_dec),
+                   max(limit(e) for _, e in pairs[2:]))
+    r["same_tokens"] = bool(torch.equal(got_dec[:, -1].argmax(-1),
+                                        ref_dec[:, -1].argmax(-1)))
+    return r
+
+
 def _disagg_child(rank, port, out_dir, runs):
     """One rank of phase 3t: rank 0 is pod 0 (prefill), rank 1 pod 1
     (decode), both on card 0, joined by gloo.  For each run (tag, arch,
     smoke, dtype, batch, seq, chunk, pad): weights and prompts from the
-    seed, ``make_disagg_step``, then on pod 1 the same step's work in one
-    process (``prefill_chunked`` + ``decode_step``) on the same weights
-    for comparison.  Writes its results to ``out_dir/rank<r>.pt``; any
-    failed check raises, which fails the phase."""
+    seed; on pod 1 the step's work in one process (``prefill_chunked`` +
+    ``decode_step``) on the same weights, for comparison; then
+    ``make_disagg_step`` twice, both pods' caches zeroed before each and
+    each run checked (``_disagg_check``).  Writes its results to
+    ``out_dir/rank<r>.pt``; any failed check raises, which fails the
+    phase."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -3972,35 +4009,7 @@ def _disagg_child(rank, port, out_dir, runs):
         del cache
         tk = S.shard({"t": toks}, mesh, {"t": S.data_sharding(mesh)})["t"]
         real = (M.prefill_chunked, M.decode_step, D.kv_handoff)
-        step = D.make_disagg_step(cfg, mesh, chunk_size=chunk)
-        # twice: a process's first step pays its one-time CUDA and cuBLAS
-        # set-up; the second is timed and counted (it prefills pod 0's
-        # zeroed cache again and overwrites pod 1's)
-        for _ in range(2):
-            times = {}
-            M.prefill_chunked = _timed(real[0], times, "prefill_s")
-            M.decode_step = _timed(real[1], times, "decode_s")
-            D.kv_handoff = _timed(real[2], times, "handoff_s", pair)
-            k5.launches = k5.tensor_core_launches = 0
-            dist.barrier()
-            try:
-                with torch.no_grad():
-                    first, dec, cs = step(ps, tk, cs)
-                torch.cuda.synchronize()
-            finally:
-                M.prefill_chunked, M.decode_step, D.kv_handoff = real
-        r = dict(times, launches=k5.launches,
-                 tc_launches=k5.tensor_core_launches, pod=pod,
-                 handoff_bytes=sum(S.local(x).numel()
-                                   * S.local(x).element_size()
-                                   for layer in cs for x in layer.values()))
-        r["handoff_bytes"] += first.to_local().numel() \
-            * first.to_local().element_size()
-        if pod == 0:
-            check(dec is None, "phase 3t: pod 0 decoded")
-            r["zero"] = all(float(S.local(x).abs().max()) == 0
-                            for layer in cs for x in layer.values())
-        else:
+        if pod == 1:
             # the same work in one process on the same weights
             plain = S.tree_map_with_path(lambda _, x: S.local(x), ps)
             ref_cache = M.init_cache(cfg, b, s + pad, device=device)
@@ -4013,27 +4022,42 @@ def _disagg_child(rank, port, out_dir, runs):
                     plain, cfg, nt, ref_cache,
                     torch.full((b,), s, dtype=torch.int32, device=device))
             torch.cuda.synchronize()
-            got_first, got_dec = first.to_local(), dec.to_local()
-            pairs = [(got_first, ref_first), (got_dec, ref_dec)] + [
-                (S.local(layer[k]), ref_layer[k])
-                for layer, ref_layer in zip(cs, ref_cache) for k in layer]
-            r["first_err"] = float((got_first.float()
-                                    - ref_first.float()).abs().max())
-            r["dec_err"] = float((got_dec.float()
-                                  - ref_dec.float()).abs().max())
-            r["cache_err"] = max(float((a.float() - e.float()).abs().max())
-                                 for a, e in pairs[2:])
-            r["bitwise"] = all(torch.equal(a, e) for a, e in pairs)
-            r["limits"] = (limit(ref_first), limit(ref_dec),
-                           max(limit(e) for _, e in pairs[2:]))
-            r["same_tokens"] = bool(torch.equal(
-                got_dec[:, -1].argmax(-1), ref_dec[:, -1].argmax(-1)))
-            if smoke:
-                r["first"], r["dec"] = got_first.cpu(), got_dec.cpu()
-                r["params"] = S.tree_map_with_path(
-                    lambda _, x: S.local(x).cpu(), ps)
-                r["toks"] = toks.cpu()
-            del plain, ref_cache, pairs
+            del plain
+        step = D.make_disagg_step(cfg, mesh, chunk_size=chunk)
+        # twice, both checked: a process's first step pays its one-time
+        # CUDA and cuBLAS set-up, the second is timed.  Both pods' caches
+        # are zeroed before each, so pod 1's can only hold this run's
+        # handoff
+        r = []
+        for _ in range(2):
+            for layer in cs:
+                for x in layer.values():
+                    S.local(x).zero_()
+            times = {}
+            M.prefill_chunked = _timed(real[0], times, "prefill_s")
+            M.decode_step = _timed(real[1], times, "decode_s")
+            D.kv_handoff = _timed(real[2], times, "handoff_s", pair)
+            k5.launches = k5.tensor_core_launches = 0
+            dist.barrier()
+            try:
+                with torch.no_grad():
+                    first, dec, cs = step(ps, tk, cs)
+                torch.cuda.synchronize()
+            finally:
+                M.prefill_chunked, M.decode_step, D.kv_handoff = real
+            r.append(_disagg_check(
+                dict(times, launches=k5.launches,
+                     tc_launches=k5.tensor_core_launches, pod=pod),
+                first, dec, cs, None if pod == 0 else
+                (ref_first, ref_dec, ref_cache)))
+        if pod == 1 and smoke:
+            r[-1]["first"] = first.to_local().cpu()
+            r[-1]["dec"] = dec.to_local().cpu()
+            r[-1]["params"] = S.tree_map_with_path(
+                lambda _, x: S.local(x).cpu(), ps)
+            r[-1]["toks"] = toks.cpu()
+        if pod == 1:
+            del ref_first, ref_dec, ref_cache
         results[tag] = r
         del ps, cs, tk, first, dec
         torch.cuda.empty_cache()
@@ -4047,13 +4071,14 @@ def disagg_phase(card):
     layers) across a (pod 2, data 1, model 1) mesh: two processes on the
     one card, a gloo group, pod 0 prefilling 16 x 4,096 tokens in chunks
     of 512, the KV handoff to pod 1, one decode step on pod 1; the step
-    runs twice in each process and the second is timed.  Pod 1's
-    first and decode logits and its cache equal the same work in one
-    process on the card (within ``limit``; bitwise printed), pod 0's
-    cache is zero, kernel 5 ran 24 x 8 times on pod 0 (all on its
-    tensor-core body) and never on pod 1.  Then the 2-layer f32 smoke
-    config the same way, pod 1's logits held against the one-process
-    CPU port: within DISAGG_F32_TOL, the same argmax.  Prints the
+    runs twice in each process, on caches zeroed before each run, and
+    the second is timed.  In each run pod 1's first and decode logits
+    and its cache equal the same work in one process on the card
+    (within ``limit``; bitwise printed), every leaf of pod 1's cache is
+    nonzero and pod 0's zero, kernel 5 ran 24 x 8 times on pod 0 (all
+    on its tensor-core body) and never on pod 1.  Then the 2-layer f32
+    smoke config the same way, pod 1's logits held against the
+    one-process CPU port: within DISAGG_F32_TOL, the same argmax.  Prints the
     handoff's bytes, ms and GB/s and the prefill and decode ms."""
     import socket
     import tempfile
@@ -4076,23 +4101,29 @@ def disagg_phase(card):
                  join=True)
         res = [torch.load(Path(out_dir) / f"rank{r}.pt") for r in (0, 1)]
     cfg = get_config("qwen2_0_5b")
-    p0, p1 = res[0]["3t"], res[1]["3t"]
     n_chunks = DISAGG["seq"] // DISAGG["chunk"]
-    check(p0["pod"] == 0 and p1["pod"] == 1, "phase 3t: pods")
-    check(p0["zero"], "phase 3t: pod 0's cache is not zero after the "
-          "handoff")
-    check(p0["launches"] == cfg.n_layers * n_chunks == p0["tc_launches"],
-          f"phase 3t: pod 0 launched kernel 5 {p0['launches']} times "
-          f"({p0['tc_launches']} on tensor cores), not {cfg.n_layers} x "
-          f"{n_chunks}")
-    check(p1["launches"] == 0, f"phase 3t: pod 1 launched kernel 5 "
-          f"{p1['launches']} times")
-    lims = p1["limits"]
-    check(p1["first_err"] <= lims[0] and p1["dec_err"] <= lims[1]
-          and p1["cache_err"] <= lims[2] and p1["same_tokens"],
-          f"phase 3t: pod 1 differs from the one-process run: first "
-          f"{p1['first_err']}, decode {p1['dec_err']}, cache "
-          f"{p1['cache_err']} (limits {lims})")
+    for i, (p0, p1) in enumerate(zip(res[0]["3t"], res[1]["3t"])):
+        run = f"phase 3t, run {i + 1} of 2"
+        check(p0["pod"] == 0 and p1["pod"] == 1, f"{run}: pods")
+        check(p0["zero"], f"{run}: pod 0's cache is not zero after the "
+              "handoff")
+        check(p1["nonzero"], f"{run}: a leaf of pod 1's cache is zero "
+              "after the handoff")
+        check(p0["launches"] == cfg.n_layers * n_chunks
+              == p0["tc_launches"],
+              f"{run}: pod 0 launched kernel 5 {p0['launches']} times "
+              f"({p0['tc_launches']} on tensor cores), not "
+              f"{cfg.n_layers} x {n_chunks}")
+        check(p1["launches"] == 0, f"{run}: pod 1 launched kernel 5 "
+              f"{p1['launches']} times")
+        lims = p1["limits"]
+        check(p1["first_err"] <= lims[0] and p1["dec_err"] <= lims[1]
+              and p1["cache_err"] <= lims[2] and p1["same_tokens"],
+              f"{run}: pod 1 differs from the one-process run: first "
+              f"{p1['first_err']}, decode {p1['dec_err']}, cache "
+              f"{p1['cache_err']} (limits {lims})")
+    # the timed run
+    p0, p1 = res[0]["3t"][-1], res[1]["3t"][-1]
     gb = p1["handoff_bytes"] / 1e9
     print(f"phase 3t: {cfg.name} full width, {cfg.n_layers} layers, bf16, "
           f"make_disagg_step on (pod 2, data 1, model 1), two processes on "
@@ -4104,16 +4135,25 @@ def disagg_phase(card):
           f"GB/s); pod 1 decode {p1['decode_s'] * 1e3:.2f} ms; pod 1 vs "
           f"one process: first logits {p1['first_err']:.3e}, decode "
           f"{p1['dec_err']:.3e}, cache {p1['cache_err']:.3e}, bitwise "
-          f"{'yes' if p1['bitwise'] else 'no'}; pod 0's cache zero "
-          f"({card})")
+          f"{'yes' if p1['bitwise'] else 'no'} (run 1: "
+          f"{'yes' if res[1]['3t'][0]['bitwise'] else 'no'}); caches "
+          f"zeroed before each run, pod 0's zero and pod 1's nonzero "
+          f"after both ({card})")
     # the 2-layer f32 smoke config: card (pod 1) against the CPU port
-    s1 = res[1]["3t-f32"]
+    s1 = res[1]["3t-f32"][-1]
     scfg = dataclasses.replace(get_smoke_config("qwen2_0_5b"),
                                dtype="float32")
-    check(res[0]["3t-f32"]["zero"] and s1["launches"] == 0
-          and res[0]["3t-f32"]["launches"] == scfg.n_layers * (
-              DISAGG_SMOKE["seq"] // DISAGG_SMOKE["chunk"]),
-          "phase 3t: smoke run launches / zero cache")
+    for q0, q1 in zip(res[0]["3t-f32"], res[1]["3t-f32"]):
+        check(q0["zero"] and q1["nonzero"] and q1["launches"] == 0
+              and q0["launches"] == scfg.n_layers * (
+                  DISAGG_SMOKE["seq"] // DISAGG_SMOKE["chunk"]),
+              "phase 3t: smoke run launches / zero or nonzero cache")
+        check(q1["first_err"] <= q1["limits"][0]
+              and q1["dec_err"] <= q1["limits"][1]
+              and q1["cache_err"] <= q1["limits"][2] and q1["same_tokens"],
+              f"phase 3t: f32 smoke, pod 1 differs from the one-process "
+              f"run: first {q1['first_err']}, decode {q1['dec_err']}, "
+              f"cache {q1['cache_err']}")
     b, s = DISAGG_SMOKE["batch"], DISAGG_SMOKE["seq"]
     with torch.no_grad():
         cache = M.init_cache(scfg, b, s + DISAGG_SMOKE["pad"], device="cpu")

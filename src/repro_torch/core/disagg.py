@@ -90,19 +90,15 @@ def make_disagg_step(cfg: ModelConfig, mesh, *, chunk_size: int,
                 loc = first.to_local()
             else:
                 # the shape of pod 0's local logits, to receive into
-                table = params["embed" if cfg.tie_embeddings
-                               else "lm_head"]
-                vocab = cfg.vocab_size
-                if S.model_dim(table) is not None:
-                    vocab //= S.model_size()
-                loc = torch.empty((S.local(tokens).shape[0], 1, vocab),
+                loc = torch.empty((S.local(tokens).shape[0], 1,
+                                   M.local_vocab(params, cfg)),
                                   dtype=M.torch_dtype(cfg),
                                   device=S.local(tokens).device)
             cache = kv_handoff(cache, mesh, batch_axes=batch_axes)
             loc = _send(loc, mesh)
             if pod == 0:
                 return first, None, cache
-            first = M._out(loc, cfg, S.batch_sharded(tokens))
+            first = M.wrap_logits(loc, cfg, S.batch_sharded(tokens))
             full = first.redistribute(placements=[
                 p if ax in batch_axes else _replicate()
                 for ax, p in zip(mesh.mesh_dim_names, first.placements)])

@@ -39,6 +39,7 @@ from repro_torch.models import model as M
 from repro_torch.models import sharding as S
 from repro_torch.runtime.costmodel import HardwareSpec
 from repro_torch.train import optimizer as opt
+from repro_torch.train import trainer
 
 _H100 = HardwareSpec.h100()
 PEAK_FLOPS = _H100.peak_flops      # bf16 dense, a card (data sheet)
@@ -54,64 +55,6 @@ def collective_stats(summary: op_cost.CostSummary) -> dict:
     return {k: {"count": int(summary.collective_counts.get(k, 0)),
                 "bytes": int(v)}
             for k, v in summary.collective_bytes.items()}
-
-
-def _train_step(cfg, mesh, batch_axes, opts, micro: int):
-    """A sharded LM train step on local shards: forward through the
-    sharded model, the vocab-parallel cross entropy, backward (the
-    Megatron operators of ``models/sharding.py`` carry the model-axis
-    gradients), data-parallel averaging of the gradients (all-reduce of
-    the leaves replicated over the batch axes; the FSDP leaves' gradients
-    come reduce-scattered out of their gathers), then AdamW on the local
-    shards.  The loss and its gradients on a gloo group equal unsharded
-    autograd (tests/test_torch_sharding.py); the clip norm is taken over
-    this rank's shards, which is enough for the dry run's accounting."""
-    from torch.distributed.tensor import DTensor
-    opt_cfg = opt.AdamWConfig()
-
-    def step(params, opt_state, tokens, labels, enc=None):
-        flat = S.leaves(params)
-        loc = [S.local(p).detach().requires_grad_(True) for p in flat]
-        it = iter(loc)
-        dparams = S.tree_map_with_path(
-            lambda _, p: DTensor.from_local(
-                next(it), p.device_mesh, p.placements, run_check=False,
-                shape=p.shape, stride=p.stride()), params)
-        toks, labs = S.local(tokens), S.local(labels)
-        encs = None if enc is None else S.local(enc)
-        b = toks.shape[0]
-        mb = b // micro
-        grads = None
-        with S.activation_sharding(mesh, batch_axes=batch_axes, opts=opts):
-            for i in range(micro):
-                sl = slice(i * mb, (i + 1) * mb)
-                logits, aux = M.forward_train(
-                    dparams, cfg, toks[sl],
-                    enc_embeds=None if encs is None else encs[sl])
-                loss = S.vocab_parallel_nll(logits.to_local(), labs[sl],
-                                            cfg.vocab_size)
-                g = torch.autograd.grad(loss + aux, loc, allow_unused=True)
-                g = [torch.zeros_like(p) if x is None else x
-                     for x, p in zip(g, loc)]
-                grads = g if grads is None else [a + x for a, x in
-                                                 zip(grads, g)]
-            dsize = S.data_axis_size()
-            for i, p in enumerate(flat):
-                gi = grads[i] / micro
-                fsdp = S.batch_sharded_weight(p)
-                for ax in S.batch_axes():
-                    if not fsdp:
-                        gi = S.all_reduce(gi, ax)
-                grads[i] = gi / dsize
-        # the local views share the DTensors' storage: updated in place
-        local_state = opt.AdamWState(
-            step=opt_state.step, m=[S.local(x) for x in S.leaves(opt_state.m)],
-            v=[S.local(x) for x in S.leaves(opt_state.v)])
-        with torch.no_grad():
-            opt.update(opt_cfg, grads, local_state, loc)
-        opt_state.step = local_state.step
-        return params, opt_state, loss.detach()
-    return step
 
 
 def build_step(cfg, shape_name, mesh, batch_axes, opts=()):
@@ -135,27 +78,31 @@ def build_step(cfg, shape_name, mesh, batch_axes, opts=()):
         return S.data_sharding(mesh, batch_axes, nd) if batch_axes \
             else repl
 
+    def constrained(fn):
+        def step(*a):
+            with S.activation_sharding(mesh, batch_axes=batch_axes,
+                                       opts=opts):
+                return fn(*a)
+        return step
+
     if kind == "train":
         p_sh = S.param_shardings(params_abs, mesh, fsdp=True)
-        opt_abs = opt.AdamWState(
-            step=0,
-            m=S.tree_map_with_path(lambda _, p: torch.empty(
-                p.shape, dtype=torch.float32, device="meta"), params_abs),
-            v=S.tree_map_with_path(lambda _, p: torch.empty(
-                p.shape, dtype=torch.float32, device="meta"), params_abs))
+        opt_abs = opt.init(params_abs)
         o_sh = opt.AdamWState(step=None, m=p_sh, v=p_sh)
         has_enc = "enc_embeds" in specs
         micro = 1
         for o in opts:
             if o.startswith("mb"):
                 micro = int(o[2:])
-        step = _train_step(cfg, mesh, batch_axes, opts, micro)
+        step = trainer.make_train_step(cfg, has_encoder=has_enc,
+                                       microbatch=micro)
         args = [params_abs, opt_abs, specs["tokens"], specs["labels"]]
         in_sh = [p_sh, o_sh, data_sh(1), data_sh(1)]
         if has_enc:
             args.append(specs["enc_embeds"])
             in_sh.append(data_sh(2))
-        return step, args, tuple(in_sh), (p_sh, o_sh, repl), batch_axes
+        return (constrained(step), args, tuple(in_sh), (p_sh, o_sh, repl),
+                batch_axes)
 
     # serving: weights replicated over data unless they would not fit;
     # over-budget models use 2D tensor parallelism (expert dim x ff dim)
@@ -164,13 +111,6 @@ def build_step(cfg, shape_name, mesh, batch_axes, opts=()):
     big = per_chip > FSDP_SERVE_BYTES
     p_sh = S.param_shardings(params_abs, mesh, serve2d=big)
     c_sh = S.cache_shardings(specs["cache"], mesh, batch_axes=batch_axes)
-
-    def constrained(fn):
-        def step(*a):
-            with S.activation_sharding(mesh, batch_axes=batch_axes,
-                                       opts=opts):
-                return fn(*a)
-        return step
 
     if kind == "prefill":
         has_enc = "enc_embeds" in specs

@@ -162,7 +162,9 @@ def seq_sharded_attn(q, k_cache, v_cache, *, q_offset: int, kv_len: int,
     qg = q.reshape(b, sq, kvh, h // kvh, hd).to(kc.dtype).float()
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, kc.float()) * hd ** -0.5
     q_pos = q_offset + torch.arange(sq, device=q.device)
-    k_pos = lo + torch.arange(kc.shape[1], device=q.device)
+    k_pos = torch.arange(kc.shape[1], device=q.device)
+    if lo:
+        k_pos += lo
     mask = (q_pos[:, None] >= k_pos[None, :]) & (k_pos[None, :] < kv_len)
     if window:
         mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
@@ -222,7 +224,9 @@ def decode_attn_batched(q, k_cache, v_cache, pos, window: int = 0,
     qg = q.reshape(b, 1, kvh, rep, hd).float()
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg,
                           k_cache.float()) * hd ** -0.5
-    idx = lo + torch.arange(s_loc, device=q.device)[None, :]
+    idx = torch.arange(s_loc, device=q.device)[None, :]
+    if lo:
+        idx = idx + lo
     pb = pos.long()[:, None]
     if ring:
         valid = idx < torch.clamp(pb + 1, max=s)
@@ -403,11 +407,12 @@ def _latent_attn(p: dict, cfg: ModelConfig, q_nope, q_rope, ckv_cache,
         q_lat, q_rope = SH.all_gather(q_lat, 2), SH.all_gather(q_rope, 2)
     ckvf = ckv.float()
     scores = torch.einsum("bqhl,bsl->bhqs", q_lat.to(lat_t).float(), ckvf)
-    scores = scores + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
-                                   kr.float())
-    scores = scores * mla_scale(cfg)
-    k_pos = lo + torch.arange(ckv.shape[1], device=ckv.device)
-    scores = scores.masked_fill(~mask_fn(k_pos), ref.NEG_INF)
+    scores += torch.einsum("bqhr,bsr->bhqs", q_rope.float(), kr.float())
+    scores *= mla_scale(cfg)
+    k_pos = torch.arange(ckv.shape[1], device=ckv.device)
+    if lo:
+        k_pos += lo
+    scores.masked_fill_(~mask_fn(k_pos), ref.NEG_INF)
     o_lat = _softmax_pv(scores, lambda pr: torch.einsum(
         "bhqs,bsl->bqhl", pr.to(lat_t).float(), ckvf), sharded)
     if spread:

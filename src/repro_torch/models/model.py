@@ -162,16 +162,30 @@ def _embed(params, cfg: ModelConfig, tokens, positions):
     return h
 
 
+def _head_table(params, cfg: ModelConfig):
+    """(the LM head's table, whether it is used transposed): the tied
+    embedding or ``lm_head``."""
+    if cfg.tie_embeddings:
+        return params["embed"], True
+    return params["lm_head"], False
+
+
 def _head(params, cfg: ModelConfig, h):
     """Final norm and the LM head; under a mesh whose model axis divides
-    the vocab, this rank's vocab columns (``_out`` wraps them)."""
+    the vocab, this rank's vocab columns (``wrap_logits`` wraps them)."""
     h = B.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
-        return SH.head_logits(h, params["embed"], transposed=True)[0]
-    return SH.head_logits(h, params["lm_head"], transposed=False)[0]
+    return SH.head_logits(h, *_head_table(params, cfg))[0]
 
 
-def _out(logits, cfg: ModelConfig, batch_sharded: bool):
+def local_vocab(params, cfg: ModelConfig) -> int:
+    """The width of this rank's logits from the head: the vocab, or this
+    rank's shard of it when the head shards it over the model axis."""
+    if SH.head_sharded(*_head_table(params, cfg)):
+        return cfg.vocab_size // SH.model_size()
+    return cfg.vocab_size
+
+
+def wrap_logits(logits, cfg: ModelConfig, batch_sharded: bool):
     """An entry point's logits: as they are outside a mesh; under one a
     DTensor, batch over the batch axes when the inputs were, vocab over
     the model axis when the head sharded it."""
@@ -319,7 +333,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *, q_offset: int = 0,
     h, cache, _ = _run_layers(params, cfg, h, mode="prefill", caches=cache,
                               q_offset=q_offset,
                               enc=_encode(params, cfg, enc_embeds))
-    return _out(_head(params, cfg, h[:, -1:]), cfg, bsh), cache
+    return wrap_logits(_head(params, cfg, h[:, -1:]), cfg, bsh), cache
 
 
 def prefill_chunked(params, cfg: ModelConfig, tokens, cache, *,
@@ -344,7 +358,7 @@ def prefill_chunked(params, cfg: ModelConfig, tokens, cache, *,
         h = _embed(params, cfg, chunk, positions.expand(b, chunk_size))
         h, cache, _ = _run_layers(params, cfg, h, mode="prefill",
                                   caches=cache, q_offset=start, enc=enc)
-    return _out(_head(params, cfg, h[:, -1:]), cfg, bsh), cache
+    return wrap_logits(_head(params, cfg, h[:, -1:]), cfg, bsh), cache
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, pos):
@@ -357,7 +371,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, pos):
     h = _embed(params, cfg, tokens, pos[:, None])
     h, cache, _ = _run_layers(params, cfg, h, mode="decode", caches=cache,
                               pos=pos)
-    return _out(_head(params, cfg, h), cfg, bsh), cache
+    return wrap_logits(_head(params, cfg, h), cfg, bsh), cache
 
 
 def decode_step_greedy(params, cfg: ModelConfig, tokens, cache, pos):
@@ -385,7 +399,7 @@ def forward_train(params, cfg: ModelConfig, tokens, *, enc_embeds=None):
     h = _embed(params, cfg, tokens, positions)
     h, _, aux = _run_layers(params, cfg, h, mode="train",
                             enc=_encode(params, cfg, enc_embeds))
-    return _out(_head(params, cfg, h), cfg, bsh), aux
+    return wrap_logits(_head(params, cfg, h), cfg, bsh), aux
 
 
 def classify(params, cfg: ModelConfig, tokens, lengths):

@@ -536,9 +536,9 @@ def fsdp_gather(x, dim: int, axis: str):
 # ---------------------------------------------------------------------------
 def _shard_dims(x) -> dict:
     """{mesh axis: tensor dim} of a DTensor's Shard placements."""
-    from torch.distributed.tensor import Shard
     if not is_dtensor(x):
         return {}
+    from torch.distributed.tensor import Shard
     names = x.device_mesh.mesh_dim_names
     return {names[i]: p.dim for i, p in enumerate(x.placements)
             if isinstance(p, Shard)}
@@ -645,19 +645,24 @@ def embed_lookup(table, tokens):
     return all_reduce(h)
 
 
+def head_sharded(table, transposed: bool) -> bool:
+    """Whether ``head_logits`` gives this rank's vocab columns only: the
+    table's vocab dim (0 of a tied embedding, 1 of an LM head) shards
+    over the model axis."""
+    return model_dim(table) == (0 if transposed else 1)
+
+
 def head_logits(h, table, transposed: bool):
     """``h @ table.T`` (tied embedding) or ``h @ table``: (logits,
-    vocab_sharded): this rank's vocab columns when the vocab dim shards
-    over the model axis."""
+    vocab_sharded): this rank's vocab columns when ``head_sharded``."""
     tl, dim = weight(table)
     if transposed:
         tl = tl.T
-        dim = None if dim is None else 1 - dim
-    if dim is None:
-        return h @ tl, False
-    if dim != tl.ndim - 1:
-        return h @ all_gather(tl, dim), False
-    return enter(h) @ tl, True
+    if head_sharded(table, transposed):
+        return enter(h) @ tl, True
+    if dim is not None:
+        tl = all_gather(tl, 1 - dim if transposed else dim)
+    return h @ tl, False
 
 
 # ---------------------------------------------------------------------------
@@ -667,7 +672,9 @@ def seq_shard(c, seq_dim: int = 1):
     """(local tensor, first global position it holds, global length,
     sharded) of a cache leaf whose ``seq_dim`` may shard over the model
     axis."""
-    loc = local(c)
+    if not active() or not is_dtensor(c):
+        return c, 0, c.shape[seq_dim], False
+    loc = c.to_local()
     if _shard_dims(c).get(_model_axis()) == seq_dim and model_size() > 1:
         n = loc.shape[seq_dim]
         return loc, model_rank() * n, n * model_size(), True
@@ -766,14 +773,12 @@ def store_cache(c: dict, new: dict) -> dict:
 # the reference's constraint hooks, on local shards
 # ---------------------------------------------------------------------------
 def seq_constrain(x, seq_dim: int = 1):
-    """The reference pins a cache or score tensor's sequence dim to the
-    model axis.  Here a tensor replicated over the model axis becomes
-    this rank's sequence shard (when the dim divides); the identity
-    outside a context."""
-    m = model_size()
-    if m == 1 or x.ndim <= seq_dim or x.shape[seq_dim] % m:
-        return x
-    return split(x, seq_dim)
+    """The reference's name for pinning a tensor's sequence dim to the
+    model axis.  A sequence-sharded cache is read where it lies
+    (``seq_shard``), so nothing in the port calls this: the identity,
+    kept for the reference's API."""
+    del seq_dim
+    return x
 
 
 def batch2d_constrain(x):
@@ -815,17 +820,77 @@ def act_constrain(x, *, vocab_dim: bool = False):
 
 def moe_constrain(x, expert_dim: Optional[int] = None,
                   ff_dim: Optional[int] = None):
-    """The reference constrains MoE intermediates (token groups over the
-    batch axes, experts over the model axis).  Here the groups are
-    already this rank's tokens and ``moe_forward`` computes this rank's
-    experts only, so the layout needs no change: the identity."""
+    """The reference's name for constraining MoE intermediates.  Here the
+    groups are already this rank's tokens and ``moe_forward`` computes
+    this rank's experts only, so nothing calls this: the identity, kept
+    for the reference's API."""
     del expert_dim, ff_dim
     return x
 
 
-def batch_sharded_weight(w) -> bool:
-    """Whether a weight shards over a batch axis (FSDP / serve2d)."""
-    return any(ax in batch_axes() for ax in _shard_dims(w))
+# ---------------------------------------------------------------------------
+# training on local shards
+# ---------------------------------------------------------------------------
+def grad_leaves(params):
+    """(this rank's local tensor of every leaf, detached and requiring
+    grad: the tensors to differentiate and update; ``params`` with each
+    DTensor leaf re-wrapped around its local tensor in the same
+    placements, through which gradients flow back to it).  The local
+    tensors share the DTensors' storage, so an in-place update lands in
+    them."""
+    from torch.distributed.tensor import DTensor
+    flat = leaves(params)
+    loc = [local(p).detach().requires_grad_(True) for p in flat]
+    it = iter(zip(loc, flat))
+
+    def one(_, p):
+        x, p = next(it)
+        if not is_dtensor(p):
+            return x
+        return DTensor.from_local(x, p.device_mesh, p.placements,
+                                  run_check=False, shape=p.shape,
+                                  stride=p.stride())
+    return loc, tree_map_with_path(one, params)
+
+
+def reduce_grads(grads, params):
+    """Data-parallel gradients: each leaf's local gradient summed over
+    every batch axis the weight does not shard over (an FSDP leaf's came
+    reduce-scattered out of its gather over that axis).  With the loss a
+    mean over every rank's tokens (``vocab_parallel_nll``) the sums are
+    the gradients of the global loss.  The identity outside a context."""
+    axes = [ax for ax in batch_axes() if axis_size(ax) > 1]
+    if not axes:
+        return grads
+    out = leaves(grads)
+    for i, p in enumerate(leaves(params)):
+        dims = _shard_dims(p)
+        for ax in axes:
+            if ax not in dims:
+                out[i] = _raw_all_reduce(out[i], ax)
+    it = iter(out)
+    return tree_map_with_path(lambda *_: next(it), grads)
+
+
+def shard_sum(values, like) -> torch.Tensor:
+    """The sum over the whole mesh of per-leaf partial sums ``values``
+    (0-d tensors, one a leaf of ``like``, each over this rank's shard):
+    a leaf's sum is all-reduced over each mesh axis it shards over, and
+    counted once over the axes it is replicated on.  Outside a context
+    the plain sum.  A global norm of gradients sharded like ``like``."""
+    if not active():
+        return torch.stack(values).sum()
+    groups: dict = {}
+    for v, p in zip(values, like):
+        key = tuple(ax for ax in _shard_dims(p) if axis_size(ax) > 1)
+        groups.setdefault(key, []).append(v)
+    total = None
+    for key in sorted(groups):       # the same order on every rank
+        part = torch.stack(groups[key]).sum()
+        for ax in key:
+            part = _raw_all_reduce(part, ax)
+        total = part if total is None else total + part
+    return total
 
 
 def vocab_parallel_nll(logits, labels, vocab: int):
@@ -833,7 +898,10 @@ def vocab_parallel_nll(logits, labels, vocab: int):
     vocab shard) against labels (b, s) (-100 masked), in f32.  On a
     vocab shard the log-sum-exp and the target logit are all-reduced
     over the model axis (Megatron's vocab-parallel cross entropy), so no
-    rank holds the whole vocab."""
+    rank holds the whole vocab.  Inside a context the batch is this
+    rank's shard over the batch axes and the mean is the global one
+    (the sum and the count all-reduced over them); outside, the plain
+    masked mean."""
     lf = logits.float()
     labels = labels.long()
     mask = (labels >= 0).float()
@@ -849,7 +917,10 @@ def vocab_parallel_nll(logits, labels, vocab: int):
         tgt = all_reduce(lf.gather(-1, t.clamp(0, n - 1)[..., None])[..., 0]
                          * ok)
         nll = torch.log(se) + m[..., 0] - tgt
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    num, den = (nll * mask).sum(), mask.sum()
+    for ax in batch_axes():       # the mean over every rank's tokens
+        num, den = all_reduce(num, ax), all_reduce(den, ax)
+    return num / torch.clamp(den, min=1.0)
 
 
 def wrap(x, batch_sharded: bool, model_dim: Optional[int] = None):

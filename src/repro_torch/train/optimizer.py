@@ -11,6 +11,12 @@ its own dtype after the f32 step, as the reference does.  The schedule
 and the bias corrections are host floats computed in float32, the
 reference's arithmetic; the global norm and the clip scale stay on the
 parameters' device, so an update never waits for the device.
+
+Sharded (``models/sharding.py``): inside ``activation_sharding`` the
+parameters and moments may be DTensors and the gradients this rank's
+local ones.  ``update`` then steps every rank's local shards in place,
+and the clip norm is the global one: each leaf's squares are summed
+over the mesh axes it shards over (``sharding.shard_sum``).
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ from typing import Any, Callable, List
 
 import numpy as np
 import torch
+
+from repro_torch.models import sharding as SH
 
 
 def leaves(tree) -> List[torch.Tensor]:
@@ -87,10 +95,13 @@ def schedule(cfg: AdamWConfig, step: int) -> float:
     return float(f32(cfg.lr) * warm * frac)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32 (a 0-d tensor)."""
-    return torch.sqrt(torch.stack(
-        [l.float().square().sum() for l in leaves(tree)]).sum())
+def global_norm(tree, like=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32 (a 0-d tensor).
+    ``like``: the tree whose leaves' placements ``tree``'s local leaves
+    share (the parameters), for a norm over the whole mesh."""
+    sq = [l.float().square().sum() for l in leaves(tree)]
+    return torch.sqrt(SH.shard_sum(sq, leaves(tree if like is None
+                                               else like)))
 
 
 @torch.no_grad()
@@ -100,7 +111,7 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
     m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2, and p -= lr (m_hat /
     (sqrt(v_hat) + eps) + weight_decay p), all in f32, p cast back to
     its dtype."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, params)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = state.step + 1
@@ -110,6 +121,7 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
     b2c = float(f32(1) - f32(cfg.b2) ** f32(step))
     for g, m, v, p in zip(leaves(grads), leaves(state.m), leaves(state.v),
                           leaves(params)):
+        m, v, p = SH.local(m), SH.local(v), SH.local(p)
         g = g.float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())

@@ -12,6 +12,15 @@ attention is kernel 5 and its hand-written backward on the card; a leaf
 the loss does not reach (a classifier's unused LM-side weights, say)
 gets a zero gradient, as ``jax.grad`` gives.  The step updates the
 parameters and the optimizer state in place (``optimizer.update``).
+
+The LM step runs sharded too: called inside
+``sharding.activation_sharding`` with DTensor parameters and moments
+(``sharding.shard``) and tokens sharded over the batch axes, every rank
+differentiates its local shards, the loss is the mean over every rank's
+tokens (``sharding.vocab_parallel_nll``), the gradients of the leaves
+the batch axes do not shard are all-reduced over them
+(``sharding.reduce_grads``), and the clip norm is the global one.
+Outside a context each of these is the plain operation.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import model as M
+from repro_torch.models import sharding as SH
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import optimizer as opt
 
@@ -35,15 +45,13 @@ def _on(x, device) -> Optional[torch.Tensor]:
 
 def lm_loss(params, cfg: ModelConfig, tokens, labels, enc_embeds=None):
     """Next-token cross entropy; labels are the tokens shifted by the
-    caller, -100 entries masked.  Returns (loss + MoE aux, loss)."""
+    caller, -100 entries masked.  Returns (loss + MoE aux, loss).  Under
+    a mesh the logits may be this rank's vocab shard and the loss is the
+    global mean (``sharding.vocab_parallel_nll``)."""
     logits, aux = M.forward_train(params, cfg, tokens,
                                   enc_embeds=enc_embeds)
-    logits = logits.float()
-    labels = labels.long()
-    mask = (labels >= 0).float()
-    logp = F.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
-    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    loss = SH.vocab_parallel_nll(SH.local(logits), SH.local(labels),
+                                 cfg.vocab_size)
     return loss + aux, loss
 
 
@@ -61,8 +69,13 @@ def cls_loss(params, cfg: ModelConfig, tokens, lengths, labels):
 def grads_of(fn, params):
     """(gradient tree of ``fn(params)[0]`` w.r.t. every leaf of
     ``params``, ``fn(params)`` detached).  Leaves are made to require
-    grad; one the value does not reach gets zeros."""
+    grad; one the value does not reach gets zeros.  Inside a context the
+    gradients are of this rank's local shards, and a leaf the batch axes
+    do not shard holds this rank's share (``sharding.reduce_grads``
+    sums them)."""
     flat = opt.leaves(params)
+    if SH.active():
+        flat, params = SH.grad_leaves(params)
     for p in flat:
         p.requires_grad_(True)
     out = fn(params)
@@ -79,17 +92,24 @@ def lm_grads(params, cfg: ModelConfig, tokens, labels, enc_embeds=None,
     ``microbatch`` > 1: the gradients of ``microbatch`` equal slices of
     the batch, one after another, summed in f32 and averaged, as the
     reference's ``lax.scan`` accumulation (activation memory scales
-    1 / microbatch)."""
+    1 / microbatch).  Inside a context the inputs are this rank's batch
+    shard, the gradients its local shards of the global loss's, summed
+    over the batch axes once, after the microbatches."""
+    if SH.active():
+        tokens, labels, enc_embeds = (
+            None if x is None else SH.local(x)
+            for x in (tokens, labels, enc_embeds))
     if microbatch <= 1:
         g, (_, loss) = grads_of(lambda p: lm_loss(
             p, cfg, tokens, labels, enc_embeds), params)
-        return g, loss
+        return SH.reduce_grads(g, params), loss
     b = tokens.shape[0]
     if b % microbatch:
         raise ValueError(f"batch {b} is not a multiple of microbatch "
                          f"{microbatch}")
     mb = b // microbatch
-    g_acc = opt.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+    g_acc = opt.tree_map(lambda p: torch.zeros_like(SH.local(p),
+                                                    dtype=torch.float32),
                          params)
     l_acc = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i in range(microbatch):
@@ -100,13 +120,15 @@ def lm_grads(params, cfg: ModelConfig, tokens, labels, enc_embeds=None,
         for a, x in zip(opt.leaves(g_acc), opt.leaves(g)):
             a.add_(x.float())
         l_acc = l_acc + loss
+    g_acc = SH.reduce_grads(g_acc, params)
     return opt.tree_map(lambda g: g / microbatch, g_acc), l_acc / microbatch
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: Optional[opt.AdamWConfig]
                     = None, has_encoder: bool = False,
                     microbatch: int = 1):
-    """The LM train step; ``microbatch`` as in ``lm_grads``."""
+    """The LM train step; ``microbatch`` as in ``lm_grads``; sharded
+    inside ``sharding.activation_sharding`` (the module's docstring)."""
     opt_cfg = opt_cfg or opt.AdamWConfig()
 
     def train_step(params, opt_state, tokens, labels, enc_embeds=None):
@@ -114,8 +136,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[opt.AdamWConfig]
             raise ValueError("enc_embeds must be given exactly when "
                              "has_encoder")
         dev = _device(params)
-        g, loss = lm_grads(params, cfg, _on(tokens, dev),
-                           _on(labels, dev), _on(enc_embeds, dev),
+        g, loss = lm_grads(params, cfg, *(_on(SH.local(x), dev) for x in
+                                          (tokens, labels, enc_embeds)),
                            microbatch)
         params, opt_state = opt.update(opt_cfg, g, opt_state, params)
         return params, opt_state, loss

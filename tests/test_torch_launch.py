@@ -202,7 +202,8 @@ FAKE = textwrap.dedent("""
                link=s.link_bytes(), unknown=s.unknown_trip_loops)
     pm = make_production_mesh(multi_pod=True, device_type="cpu")
     rec = D.run_one("qwen2_0_5b", "decode_32k", False, verbose=False)
-    print(json.dumps(dict(toy=toy, rec=rec,
+    train = D.run_one("qwen2_0_5b", "train_4k", False, verbose=False)
+    print(json.dumps(dict(toy=toy, rec=rec, train=train,
                           mesh=[list(pm.mesh_dim_names),
                                 list(pm.mesh.shape)])))
 """)
@@ -251,3 +252,20 @@ def test_dryrun_record_on_the_fake_group(fake_run):
     assert rec["model_flops"] == 2.0 * M.active_param_count(
         get_config("qwen2_0_5b")) * 128
     assert np.isfinite(rec["useful_flops_ratio"])
+
+
+def test_dryrun_train_record_on_the_fake_group(fake_run):
+    """The train kind is ``trainer.make_train_step`` under the mesh: FSDP
+    weights gathered in the forward and their gradients reduce-scattered,
+    the replicated ones' gradients all-reduced over the data axis."""
+    rec = fake_run["train"]
+    assert rec["status"] == "ok" and REF_RECORD_KEYS <= set(rec)
+    assert rec["unknown_trip_loops"] == 0
+    coll = rec["collectives"]
+    assert coll["all-gather"]["count"] > 0
+    assert coll["reduce-scatter"]["count"] > 0
+    assert coll["all-reduce"]["count"] > 0
+    shape = SP.SHAPES["train_4k"]
+    assert rec["model_flops"] == 6.0 * M.active_param_count(
+        get_config("qwen2_0_5b")) * shape["batch"] * shape["seq"]
+    assert 0 < rec["useful_flops_ratio"] <= 1

@@ -33,6 +33,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
 from repro_torch.models import sharding as S
+from repro_torch.train import optimizer as opt
+from repro_torch.train import trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AXES = ("data", "model")
@@ -354,38 +356,38 @@ WORKER = textwrap.dedent("""
                 dec, cs = M.decode_step(ps, cfg, ins["n"], cs, ins["p"])
             out[name] = (first.full_tensor().numpy(),
                          dec.full_tensor().numpy())
-        for name, arch, over, opts, tree, toks, labels in job.get(
-                "train", ()):
-            # forward_train, the vocab-parallel loss and its gradients
+        for name, arch, over, opts, fsdp, micro, tree, toks, labels in \
+                job.get("train", ()):
+            # forward_train, then the trainer's own gradients and one
+            # train step, sharded
             from torch.distributed.tensor import DTensor
+            from repro_torch.train import optimizer as opt, trainer
             cfg = dataclasses.replace(get_smoke_config(arch),
                                       dtype="float32", **over)
             params = PP.from_reference(tree, cfg, device="cpu")
-            ps = S.shard(params, mesh, S.param_shardings(params, mesh))
+            ps = S.shard(params, mesh, S.param_shardings(params, mesh,
+                                                         fsdp=fsdp))
             flat = S.leaves(ps)
-            loc = [S.local(p).detach().requires_grad_(True) for p in flat]
-            it = iter(loc)
-            dps = S.tree_map_with_path(lambda _, p: DTensor.from_local(
-                next(it), p.device_mesh, p.placements, run_check=False,
-                shape=p.shape, stride=p.stride()), ps)
             ins = S.shard({"t": torch.from_numpy(toks),
                            "l": torch.from_numpy(labels)}, mesh,
                           {"t": S.data_sharding(mesh),
                            "l": S.data_sharding(mesh)})
+            st = opt.init(ps)
             with S.activation_sharding(mesh, ("data",), opts=opts):
-                logits, aux = M.forward_train(dps, cfg, ins["t"])
-                loss = S.vocab_parallel_nll(logits.to_local(),
-                                            S.local(ins["l"]),
-                                            cfg.vocab_size) + aux
-                grads = torch.autograd.grad(loss, loc)
-                grads = [S.all_reduce(g, "data") / 2 for g in grads]
-                loss = S.all_reduce(loss.detach(), "data") / 2
+                with torch.no_grad():
+                    logits, _ = M.forward_train(ps, cfg, ins["t"])
+                grads, loss = trainer.lm_grads(ps, cfg, ins["t"], ins["l"],
+                                               microbatch=micro)
+                trainer.make_train_step(cfg, job["opt"], microbatch=micro)(
+                    ps, st, ins["t"], ins["l"])
             full = [DTensor.from_local(g, p.device_mesh, p.placements,
                                        run_check=False, shape=p.shape,
                                        stride=p.stride()).full_tensor()
-                    for g, p in zip(grads, flat)]
-            out[name] = (logits.detach().full_tensor().numpy(),
-                         float(loss), [g.numpy() for g in full])
+                    for g, p in zip(S.leaves(grads), flat)]
+            out[name] = (logits.full_tensor().numpy(), float(loss),
+                         [g.numpy() for g in full],
+                         [p.full_tensor().numpy() for p in S.leaves(ps)],
+                         [m.full_tensor().numpy() for m in S.leaves(st.m)])
         if job.get("attn"):
             q, k, v, q_off, kv_len = job["attn"]
             # the cache's sequence over the model axis only
@@ -524,7 +526,7 @@ def gloo_forward(tmp_path_factory):
     k = rng.standard_normal((2, 32, 2, 16)).astype(np.float32)
     v = rng.standard_normal((2, 32, 2, 16)).astype(np.float32)
     train, train_refs = [], {}
-    for name, over, opts in TRAIN_CASES:
+    for name, over, opts, fsdp, micro in TRAIN_CASES:
         cfg = _ref_cfg("qwen2_0_5b", over)
         params = RM.init_params(jax.random.PRNGKey(1), cfg)
         toks = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
@@ -532,10 +534,11 @@ def gloo_forward(tmp_path_factory):
         logits, _ = RM.forward_train(params, cfg, jnp.asarray(toks))
         tree = jax.tree.map(np.asarray, params)
         train_refs[name] = (np.asarray(logits), tree, toks, labels)
-        train.append((name, "qwen2_0_5b", over, opts, tree, toks, labels))
+        train.append((name, "qwen2_0_5b", over, opts, fsdp, micro, tree,
+                      toks, labels))
     moe, moe_ref = _moe_case(tmp)
     job = dict(data=2, model=2, chunk=CHUNK, cases=cases + [moe],
-               train=train, attn=(q, k, v, 12, 20))
+               train=train, opt=TRAIN_OPT, attn=(q, k, v, 12, 20))
     out = run_gloo(tmp, job)
     return out, refs, (q, k, v), train_refs, moe_ref
 
@@ -561,28 +564,47 @@ def test_seq_sharded_attn_on_gloo_reduces_without_gathering(gloo_forward):
 
 # forward_train on gloo: "attn2d" splits the batch over the model axis
 # when the heads cannot shard (one KV head), "seqact" shards the residual
-# stream's sequence; logits against the reference's forward_train, the
-# sharded loss's gradients (vocab-parallel cross entropy, Megatron's
-# operators, data-parallel averaging) against the port's unsharded
-# autograd, which tests/test_torch_train.py holds against jax.grad
-TRAIN_CASES = [("train", {}, ()), ("train_attn2d", {"n_kv_heads": 1},
-                                    ("attn2d",)),
-               ("train_seqact", {}, ("seqact",))]
+# stream's sequence, "fsdp" shards the weights over the data axis too (the
+# dry run's train layout), here with two microbatches; logits against the
+# reference's forward_train, the trainer's sharded gradients (the global
+# mean loss, vocab-parallel cross entropy, Megatron's operators, the
+# data-axis sums) against the port's unsharded autograd, which
+# tests/test_torch_train.py holds against jax.grad
+# (name, config overrides, opts, fsdp, microbatches)
+TRAIN_CASES = [("train", {}, (), False, 1),
+               ("train_attn2d", {"n_kv_heads": 1}, ("attn2d",), False, 1),
+               ("train_seqact", {}, ("seqact",), False, 1),
+               ("train_fsdp_mb2", {}, (), True, 2)]
 GRAD_RTOL = 1e-5        # of each leaf's largest |gradient|
+# warm at step 1 (lr 3e-4) and a clip norm below the gradients' norm, so
+# the clip (the norm over the whole mesh) scales the step; Adam's first
+# step is x / (|x| + eps) of the clipped gradient x, so eps is set above
+# the x here: the step is then smooth in x (with a small eps an x near
+# eps turns f32 noise into a large change) and linear in the clip scale
+PARAM_ATOL = 1e-6       # updated weights, f32 (a step moves them <= 3e-4)
+TRAIN_OPT = opt.AdamWConfig(warmup_steps=1, clip_norm=1e-2, eps=1e-3)
+
+
+def _train_case(name):
+    return next(c for c in TRAIN_CASES if c[0] == name)
+
+
+def _unsharded(name, train_refs):
+    _, over, _, _, micro = _train_case(name)
+    _, tree, toks, labels = train_refs[name]
+    cfg = dataclasses.replace(get_smoke_config("qwen2_0_5b"),
+                              dtype="float32", **over)
+    return cfg, PP.from_reference(tree, cfg, device="cpu"), toks, labels
 
 
 @pytest.mark.parametrize("name", [c[0] for c in TRAIN_CASES])
 def test_sharded_train_forward_and_grads(gloo_forward, name):
-    from repro_torch.train import trainer
     out, _, _, train_refs, _ = gloo_forward
-    logits, loss, grads = out[name]
-    ref_logits, tree, toks, labels = train_refs[name]
+    logits, loss, grads, _, _ = out[name]
+    ref_logits = train_refs[name][0]
     np.testing.assert_allclose(logits, ref_logits, rtol=0,
                                atol=ATOL_LOGITS)
-    over = next(c[1] for c in TRAIN_CASES if c[0] == name)
-    cfg = dataclasses.replace(get_smoke_config("qwen2_0_5b"),
-                              dtype="float32", **over)
-    params = PP.from_reference(tree, cfg, device="cpu")
+    cfg, params, toks, labels = _unsharded(name, train_refs)
     g, (total, _) = trainer.grads_of(lambda p: trainer.lm_loss(
         p, cfg, torch.from_numpy(toks), torch.from_numpy(labels)), params)
     assert abs(loss - float(total)) <= 1e-5 * abs(float(total))
@@ -592,6 +614,34 @@ def test_sharded_train_forward_and_grads(gloo_forward, name):
         exp = exp.numpy()
         np.testing.assert_allclose(got, exp, rtol=0, atol=GRAD_RTOL * max(
             1.0, float(np.abs(exp).max())))
+
+
+@pytest.mark.parametrize("name", [c[0] for c in TRAIN_CASES])
+def test_sharded_train_step_matches_unsharded(gloo_forward, name):
+    """One ``trainer.make_train_step`` step on the mesh against the same
+    step unsharded: the first moments (the clipped gradients: a clip
+    norm over one rank's shards would scale them otherwise) and the
+    updated weights.  The moments are linear in the gradients, so they
+    carry the gradients' tolerance through the same map."""
+    out, _, _, train_refs, _ = gloo_forward
+    _, _, _, got_params, got_m = out[name]
+    cfg, params, toks, labels = _unsharded(name, train_refs)
+    micro = _train_case(name)[4]
+    st = opt.init(params)
+    g, _ = trainer.lm_grads(params, cfg, torch.from_numpy(toks),
+                            torch.from_numpy(labels), microbatch=micro)
+    norm = float(opt.global_norm(g))
+    assert norm > 10 * TRAIN_OPT.clip_norm
+    scale = (1 - TRAIN_OPT.b1) * TRAIN_OPT.clip_norm / norm
+    trainer.make_train_step(cfg, TRAIN_OPT, microbatch=micro)(
+        params, st, toks, labels)
+    for got, exp, gl in zip(got_m, S.leaves(st.m), S.leaves(g)):
+        np.testing.assert_allclose(got, exp.numpy(), rtol=0,
+                                   atol=scale * GRAD_RTOL * max(
+                                       1.0, float(gl.abs().max())))
+    for got, exp in zip(got_params, S.leaves(params)):
+        np.testing.assert_allclose(got, exp.detach().numpy(), rtol=0,
+                                   atol=PARAM_ATOL)
 
 
 def test_moe_group_size_follows_the_data_axis(gloo_forward):
