@@ -60,10 +60,13 @@ Phases, in order (any failure exits non-zero):
    one; dq, dk, dv within ``grad_limit`` (``limit``, in f32 relative to
    the largest gradient past 1) and, in f32, at most twice as far from
    an f64 autograd witness as the f32 plain version; rows no query or
-   key reaches exactly 0; each case timed beside its bound, the plain
-   version and the library's backward.  2i: kernel 5 at phase 3t's
-   prefill chunks (16 requests of 512 queries at 0, 1,536 and 3,584 of a
-   cache of 4,104, qwen2's 14 / 2 heads of 64), f32 and bf16.
+   key reaches exactly 0; every case on the tensor-core body (its
+   ``tensor_core_launches``), two calls bitwise equal; each case timed
+   beside its bound on the body's route (bf16 at 989 TFLOP/s, f32 as
+   six bf16 products at 989 / 6), the plain version and the library's
+   backward.  2i: kernel 5 at phase 3t's prefill chunks (16 requests of
+   512 queries at 0, 1,536 and 3,584 of a cache of 4,104, qwen2's 14 / 2
+   heads of 64), f32 and bf16.
    bf16 outputs are held to a limit scaled by the plain output's
    magnitude (``limit``).
    The prefill kernels (1 and 5) and the MLA decode kernel (3) run bf16
@@ -129,7 +132,8 @@ Phases, in order (any failure exits non-zero):
    OPT-125M-cls (10 classes, f32) fine-tuned 40 steps with
    ``make_cls_train_step`` on ``predictor_dataset(768)`` at batch 64:
    every loss finite, kernel 5's forward launched 2 x 12 times a step
-   (the checkpointed layers run again) and its backward 12, a gradient
+   (the checkpointed layers run again) and its backward 12, all on its
+   tensor-core body (f32 as three bf16 terms an operand), a gradient
    on every leaf the loss reaches; ms a step and the eval accuracy.  The
    tuned model then serves as ``ModelPredictor`` in
    ``Cluster(runtime="engine")`` for full-width qwen2-0.5b over 3e's
@@ -637,9 +641,11 @@ def decode_work(q, k_pool, bt, lens, window=0):
     return nbytes, int((ln - lo).sum()) * h * 4 * hd
 
 
-def bound(nbytes, flops, dtype):
+def bound(nbytes, flops, dtype, peak=None):
+    """(the least ms for ``nbytes`` and ``flops``, which bounds it), the
+    operations at ``peak`` FLOP/s or else the dtype's ``PEAK_FLOPS``."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[str(dtype)]) * 1e3
     return (float(max(t_bytes, t_ops)),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -3468,19 +3474,24 @@ def check_bwd_kernel(device, kernels, card):
     kv_len: that output within ``limit`` of the plain forward's (these
     are the training path's and the predictor's forward shapes); dq, dk
     and dv within ``grad_limit``, key rows no query reaches (those past
-    kv_len) and query rows without a key exactly 0, one launch a call.
+    kv_len) and query rows without a key exactly 0, one launch a call,
+    on the tensor-core body (``tensor_core_launches``; ``bwd_plan``
+    names its route), and a second call bitwise equal to the first.
     In f32 both the kernel's gradients and the plain version's are also
     held against ``f64_grads``: the kernel may be at most twice as far
     from it as the f32 plain version is (or within the unscaled f32
     limit), so ``grad_limit``'s scaling covers f32 rounding and no more.
     Each case timed: ms a launch (CUDA events), the card's µs by the
-    profiler, the bound, the plain version's ms and the library's
-    (``sdpa_bwd_ms``).  Returns (the backward's largest error, the
-    forward's, the timing row of 3s's OPT-125M case in f32)."""
+    profiler, the bound on the body's route (``bwd_plan.peak_flops``),
+    the plain version's ms and the library's (``sdpa_bwd_ms``).
+    Returns (the backward's largest error, the forward's, the timing row
+    of 3s's OPT-125M case in f32)."""
     import torch
     from repro_torch.kernels import ref
+    from repro_torch.kernels.bwd_plan import bwd_plan, peak_flops
     from repro_torch.kernels.chunked_prefill_attention import (
         chunked_prefill_attention, chunked_prefill_attention_bwd)
+    from repro_torch.kernels.prefill_plan import TENSOR_CORE
     gen = torch.Generator(device=device).manual_seed(SEED + 40)
     name, worst_err, worst_fwd, row = ("chunked_prefill_attention_bwd",
                                        0.0, 0.0, None)
@@ -3504,6 +3515,16 @@ def check_bwd_kernel(device, kernels, card):
             torch.cuda.synchronize()
             check(kernels[name].launches == 1,
                   f"phase 2h: {what}: {kernels[name].launches} launches")
+            body = (TENSOR_CORE if kernels[name].tensor_core_launches == 1
+                    else "cuda_core")
+            plan = bwd_plan(dtype, q.shape[0], q.shape[1], q.shape[2],
+                            k.shape[2], q.shape[3], v.shape[3], k.shape[1])
+            check(body == plan.body == TENSOR_CORE, f"phase 2h: {what}: "
+                  f"{dtype} backward ran the {body} body")
+            again = chunked_prefill_attention_bwd(*args, **kw)
+            check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                  f"phase 2h: {what}: two {dtype} calls differ")
+            del again
             exp = ref.chunked_prefill_attention_bwd(*args, **kw)
             worst = {}
             for g, e, label in zip(got, exp, ("dq", "dk", "dv")):
@@ -3547,10 +3568,11 @@ def check_bwd_kernel(device, kernels, card):
             lib_ms = sdpa_bwd_ms(q, k, v, kv_len, q_off, dout, window,
                                  causal)
             nb, fl = bwd_work(q, k, v, kv_len, q_off, window, causal)
-            bnd, by = bound(nb, fl, dtype)
+            bnd, by = bound(nb, fl, dtype, peak_flops(plan))
             dev_us, via = device_us(call)
             tm = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                      bound_ms=bnd, bound_by=by, body="cuda_core",
+                      bound_ms=bnd, bound_by=by, body=body, mma=plan.mma,
+                      bound_tflops=peak_flops(plan) / 1e12,
                       tflops=fl / (ms * 1e9), host_us=host,
                       device_us=dev_us, device_by=via)
             h, kvh, hd, hd_v = widths
@@ -3565,10 +3587,13 @@ def check_bwd_kernel(device, kernels, card):
                   f"max abs err {err:.3e} "
                   f"({share:.3f} of the limit; largest |dq|/|dk|/|dv| "
                   f"{mags});{witness} {int(dead_k.sum())} key "
-                  f"rows past every query exactly 0; {ms:.3f} ms a launch "
-                  f"({tm['tflops']:.1f} TFLOP/s of the five products), "
-                  f"device {dev_us:.1f} µs ({via}), host {host:.1f} µs, "
-                  f"bound {bnd:.4f} ms ({by}, {100 * bnd / ms:.1f}% of it), "
+                  f"rows past every query exactly 0; {body} body "
+                  f"({plan.mma}), two calls bitwise equal; {ms:.4f} ms a "
+                  f"launch ({tm['tflops']:.1f} TFLOP/s of the five "
+                  f"products), device {dev_us:.1f} µs ({via}), host "
+                  f"{host:.1f} µs, bound {bnd:.4f} ms ({by} at "
+                  f"{tm['bound_tflops']:.0f} TFLOP/s, {100 * bnd / ms:.1f}% "
+                  f"of it), "
                   f"plain {plain_ms:.3f} ms, scaled_dot_product_attention "
                   f"backward {lib_ms:.3f} ms ({card})")
             if row is None and dtype == torch.float32:
@@ -3648,8 +3673,10 @@ def predictor_finetune(device, kernels, card):
         accs.append(float(acc))
         fwd = kernels["chunked_prefill_attention"].launches
         bwd = kernels["chunked_prefill_attention_bwd"].launches
-        check(fwd == 2 * L and bwd == L, f"phase 3s: step {i}: kernel 5 "
-              f"forward {fwd} (want {2 * L}), backward {bwd} (want {L})")
+        bwd_tc = kernels["chunked_prefill_attention_bwd"].tensor_core_launches
+        check(fwd == 2 * L and bwd == L and bwd_tc == L, f"phase 3s: step "
+              f"{i}: kernel 5 forward {fwd} (want {2 * L}), backward {bwd} "
+              f"(want {L}), {bwd_tc} of them on the tensor cores")
         bwd_launches += bwd
         check(math.isfinite(losses[-1]), f"phase 3s: step {i}: loss "
               f"{losses[-1]}")
@@ -3668,7 +3695,8 @@ def predictor_finetune(device, kernels, card):
           f"{losses[-1]:.3f}, train acc {accs[-1]:.2f}, eval bucket "
           f"accuracy {100 * acc:.1f}% (chance {100 / n_classes:.1f}%) on "
           f"{len(toks) - split}; kernel 5 {2 * L} forward + {L} backward "
-          f"launches a step; {np.mean(step_ms[1:]):.1f} ms a step (mean "
+          f"launches a step, every backward on the tensor-core body; "
+          f"{np.mean(step_ms[1:]):.1f} ms a step (mean "
           f"of steps 2-{steps}; first {step_ms[0]:.1f} ms) ({card})")
     return (cfg, params, (toks[split:], lens[split:], labels[split:]),
             bwd_launches)
@@ -4764,6 +4792,7 @@ def main() -> int:
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
             "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
             "body": tm["body"], "tflops": tm["tflops"],
+            **{k: tm[k] for k in ("mma", "bound_tflops") if k in tm},
             "host_us": tm["host_us"], "device_us": tm["device_us"],
             "device_by": tm["device_by"]})
     print(f"total {time.perf_counter() - t_start:.1f} s")

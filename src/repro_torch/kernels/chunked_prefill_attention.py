@@ -33,10 +33,14 @@ wrapper can check it against the cache without a device sync.
 
 Training: ``chunked_prefill_attention_bwd`` is the backward, a second
 hand-written kernel (``csrc/chunked_prefill_attention_bwd.cu``) in
-place of JAX's autodiff of the reference's ``flash_attn``; on a CPU
-tensor it runs ``ref.chunked_prefill_attention_bwd``, on a CUDA tensor
-the kernel or a raise, and ``chunked_prefill_attention_bwd.launches``
-counts its launches (the backward launches).
+place of JAX's autodiff of the reference's ``flash_attn``, on the
+tensor cores in both dtypes (``bwd_plan.bwd_plan``: bf16 exactly with
+P and dS as three bf16 terms, f32 as three bf16 terms an operand); on
+a CPU tensor it runs ``ref.chunked_prefill_attention_bwd``, on a CUDA
+tensor the kernel or a raise.  ``chunked_prefill_attention_bwd.launches``
+counts its calls (one a backward, two launches on the card) and
+``chunked_prefill_attention_bwd.tensor_core_launches`` those of them
+that ran the tensor-core body.
 ``ChunkedPrefillAttention``, a ``torch.autograd.Function``, ties the
 two together: its forward is this module's forward wrapper, its
 backward the backward wrapper.
@@ -49,14 +53,16 @@ from array import array
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.bwd_plan import bwd_plan
 from repro_torch.kernels.prefill_plan import (TENSOR_CORE, prefill_plan,
                                               sm_count)
 
 NAME = "chunked_prefill_attention"
 BWD_NAME = "chunked_prefill_attention_bwd"
 # what the backward's launch returns for head widths it has no
-# instantiation for (its source lists the instantiated ones)
-BWD_NO_WIDTHS = -1
+# instantiation for (its source lists the instantiated ones), and for a
+# plan that is not its own
+BWD_NO_WIDTHS, BWD_PLAN_MISMATCH = -1, -2
 _FLOATS = ("torch.float32", "torch.bfloat16")
 _I32 = ("torch.int32",)
 _P = ctypes.c_void_p
@@ -186,6 +192,14 @@ def chunked_prefill_attention_bwd(q, k_cache, v_cache, out, dout, kv_len,
             f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, out / dout "
             f"{tuple(out.shape)}/{tuple(dout.shape)}, kv_len "
             f"{tuple(kv_len.shape)} do not fit")
+    try:
+        plan = bwd_plan(q.dtype, b, sq, h, kvh, hd, hd_v, skv)
+    except ValueError as e:
+        raise ValueError(f"{BWD_NAME}: {e} (csrc/{BWD_NAME}.cu lists the "
+                         "instantiated pairs)") from None
+    # its tiles are copied 16 bytes a row chunk
+    for t, width in ((q, hd), (k_cache, hd), (v_cache, hd_v), (dout, hd_v)):
+        build.check_pool_rows(BWD_NAME, t, width)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k_cache, v_cache))
     # each query row's max, 1 / sum and dO . O, from the first launch to
     # the second
@@ -195,19 +209,26 @@ def chunked_prefill_attention_bwd(q, k_cache, v_cache, out, dout, kv_len,
         out.data_ptr(), dout.data_ptr(), kv_len.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), b, q_offset, sq,
         skv, h, kvh, hd, hd_v, int(window), int(bool(causal)),
-        build.DTYPE_CODES[str(q.dtype)]))
+        build.DTYPE_CODES[str(q.dtype)], plan.rows, plan.tile, plan.stages,
+        plan.q_parts, plan.kv_parts, plan.smem))
     err = _bwd_launcher()(args.buffer_info()[0], hd ** -0.5,
                           build.raw_stream(dev))
     if err == BWD_NO_WIDTHS:
         raise ValueError(f"{BWD_NAME}: no instantiation for head widths "
                          f"hd={hd}, hd_v={hd_v} (csrc/{BWD_NAME}.cu lists "
                          "the instantiated pairs)")
+    if err == BWD_PLAN_MISMATCH:
+        raise RuntimeError(f"{BWD_NAME}: bwd_plan's {plan} is not the "
+                           "launch's own (Cfg in the source)")
     build.raise_on_error(BWD_NAME, err)
-    build.count(chunked_prefill_attention_bwd, "launches")
+    build.count(chunked_prefill_attention_bwd, "launches",
+                *(("tensor_core_launches",)
+                  if plan.body == TENSOR_CORE else ()))
     return dq, dk, dv
 
 
 chunked_prefill_attention_bwd.launches = 0
+chunked_prefill_attention_bwd.tensor_core_launches = 0
 
 
 class ChunkedPrefillAttention(torch.autograd.Function):

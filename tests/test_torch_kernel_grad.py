@@ -11,7 +11,10 @@ same plain forward, and 1e-4 against JAX, whose flash attention sums
 its online softmax block by block in another order and whose
 gradients at these shapes reach about 10.  The card's f32 backward is
 held to 2e-5 and its bf16 one to 2e-2 of the plain version's largest
-gradient (a rounding of each output).
+gradient (a rounding of each output); both run on the tensor cores (one
+``tensor_core_launches`` a call), two calls give the same bits, and in
+f32 the kernel is at most twice as far from an f64 autograd witness as
+the f32 plain version (as phase 2h of chip_smoke.py holds it).
 
 JAX's ``flash_attn`` takes one ``kv_len`` for the batch and gives the
 mean of V to a query row with no key (the port gives 0), so the JAX
@@ -143,7 +146,8 @@ def test_autograd_function_runs_the_backward_wrapper():
     _, (q, k, v, dout, lens, q_off, window, causal) = _inputs(case, seed=2)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = (chunked_prefill_attention.launches,
-              chunked_prefill_attention_bwd.launches)
+              chunked_prefill_attention_bwd.launches,
+              chunked_prefill_attention_bwd.tensor_core_launches)
     out = ChunkedPrefillAttention.apply(*leaves, lens, q_off, window,
                                         causal)
     torch.testing.assert_close(out, ref.chunked_prefill_attention(
@@ -154,7 +158,8 @@ def test_autograd_function_runs_the_backward_wrapper():
     for g, e in zip(got, exp):
         torch.testing.assert_close(g, e, rtol=0, atol=0)
     assert (chunked_prefill_attention.launches,
-            chunked_prefill_attention_bwd.launches) == before
+            chunked_prefill_attention_bwd.launches,
+            chunked_prefill_attention_bwd.tensor_core_launches) == before
 
 
 def test_dense_prefill_attention_takes_the_function_only_with_grad():
@@ -218,14 +223,17 @@ def test_cuda_backward_matches_plain_version(dtype, case):
            else chunked_prefill_attention)
     out = fwd(q, k, v, lens, q_off, window=window,
               causal=causal).contiguous()
-    before = chunked_prefill_attention_bwd.launches
+    before = (chunked_prefill_attention_bwd.launches,
+              chunked_prefill_attention_bwd.tensor_core_launches)
     got = chunked_prefill_attention_bwd(q, k, v, out, dout, lens, q_off,
                                         window=window, causal=causal)
     exp = ref.chunked_prefill_attention_bwd(q, k, v, out, dout, lens,
                                             q_off, window=window,
                                             causal=causal)
     torch.cuda.synchronize()
-    assert chunked_prefill_attention_bwd.launches == before + 1
+    assert (chunked_prefill_attention_bwd.launches,
+            chunked_prefill_attention_bwd.tensor_core_launches) == (
+                before[0] + 1, before[1] + 1)
     dead = torch.from_numpy(_dead_keys(case)).to(dev)
     for g, e in zip(got, exp):
         assert g.dtype == dtype and g.shape == e.shape
@@ -235,6 +243,125 @@ def test_cuda_backward_matches_plain_version(dtype, case):
         assert float((g.float() - e.float()).abs().max()) <= tol
     assert float(got[1][dead].float().abs().sum()) == 0.0
     assert float(got[2][dead].float().abs().sum()) == 0.0
+
+
+def _f64_grads(q, k, v, dout, lens, q_off, window, causal):
+    """Autograd of the masked softmax attention in float64: the exact
+    gradients' witness, independent of the kernel and of the plain
+    backward."""
+    b, sq, h, hd = q.shape
+    skv, kvh, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    leaves = [t.double().requires_grad_(True) for t in (q, k, v)]
+    s = torch.einsum("bqgrd,bkgd->bgrqk",
+                     leaves[0].reshape(b, sq, kvh, h // kvh, hd),
+                     leaves[1]) * hd ** -0.5
+    q_pos = q_off + torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    live = k_pos[None] < lens.long()[:, None, None]
+    if causal:
+        live = live & (k_pos <= q_pos)[None]
+    if window:
+        live = live & (k_pos > q_pos - window)[None]
+    live = live[:, None, None]
+    p = torch.where(live, torch.softmax(s.masked_fill(~live, -1e300), -1),
+                    0.0)
+    o64 = torch.einsum("bgrqk,bkgd->bqgrd", p, leaves[2])
+    return torch.autograd.grad(o64.reshape(b, sq, h, hd_v), leaves,
+                               dout.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # sq 65: a second query tile of one row
+    (2, 65, 12, 12, 64, 64, 65, 0, [65, 65], 0, True),
+    # sq 127, a kv_len that ends inside the second 64-key tile
+    (2, 127, 12, 4, 64, 64, 127, 0, [127, 90], 0, True),
+    # qwen2's rep 7 (14 / 2 heads), a ragged kv_len
+    (2, 200, 14, 2, 64, 64, 200, 0, [200, 131], 0, True),
+    # a window of 37 that ends inside a tile, hd 128
+    (2, 190, 8, 2, 128, 128, 190, 0, [190, 170], 37, True),
+])
+def test_cuda_backward_tile_edges(dtype, case):
+    """The tensor-core body's tile edges (64 rows a block) against the
+    plain version, one tensor-core launch a call, key rows no query
+    reaches exactly 0.  Gradients here reach 8-20, sums over up to 200
+    keys or queries, so f32 is held as phase 2h holds it (``grad_limit``
+    of chip_smoke.py): 2e-5 of the largest plain gradient past 1, and at
+    most twice as far from the f64 witness as the f32 plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, kw = _cuda_case(case, dtype, seed=4)
+    q, k, v, out, dout, lens, q_off = args
+    before = (chunked_prefill_attention_bwd.launches,
+              chunked_prefill_attention_bwd.tensor_core_launches)
+    got = chunked_prefill_attention_bwd(*args, **kw)
+    exp = ref.chunked_prefill_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert (chunked_prefill_attention_bwd.launches,
+            chunked_prefill_attention_bwd.tensor_core_launches) == (
+                before[0] + 1, before[1] + 1)
+    dead = torch.from_numpy(_dead_keys(case)).to(q.device)
+    exact = (_f64_grads(q, k, v, dout, lens, q_off, **kw)
+             if dtype == torch.float32 else (None,) * 3)
+    for g, e, x in zip(got, exp, exact):
+        assert g.dtype == dtype and bool(torch.isfinite(g).all())
+        big = float(e.float().abs().max())
+        tol = (F32_TOL * max(1.0, big) if dtype == torch.float32
+               else BF16_REL * big)
+        assert float((g.float() - e.float()).abs().max()) <= tol
+        if x is not None:
+            k64 = float((g.double() - x).abs().max())
+            p64 = float((e.double() - x).abs().max())
+            assert k64 <= max(2 * p64, F32_TOL), (k64, p64)
+    assert float(got[1][dead].float().abs().sum()) == 0.0
+    assert float(got[2][dead].float().abs().sum()) == 0.0
+
+
+def _cuda_case(case, dtype, seed):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, (q, k, v, dout, lens, q_off, window, causal) = _inputs(
+        case, seed=seed, device=torch.device("cuda"), dtype=dtype)
+    out = chunked_prefill_attention(q, k, v, lens, q_off, window=window,
+                                    causal=causal)
+    return (q, k, v, out, dout, lens, q_off), dict(window=window,
+                                                   causal=causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_is_deterministic(dtype):
+    """Two calls on the same inputs give the same bits (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, kw = _cuda_case((4, 256, 12, 12, 64, 64, 256, 0, [256, 200, 256,
+                                                            77], 0, True),
+                          dtype, seed=5)
+    first = chunked_prefill_attention_bwd(*args, **kw)
+    second = chunked_prefill_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_f32_backward_is_near_the_f64_witness():
+    """In f32 (each operand as three bf16 terms on the tensor cores) each
+    gradient is at most twice as far from autograd of the masked softmax
+    in float64 as the f32 plain version is, or within the f32
+    tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    case = (2, 300, 12, 4, 64, 64, 300, 0, [300, 211], 0, True)
+    args, kw = _cuda_case(case, torch.float32, seed=6)
+    q, k, v, out, dout, lens, q_off = args
+    got = chunked_prefill_attention_bwd(*args, **kw)
+    exp = ref.chunked_prefill_attention_bwd(*args, **kw)
+    exact = _f64_grads(q, k, v, dout, lens, q_off, **kw)
+    for g, e, x in zip(got, exp, exact):
+        k64 = float((g.double() - x).abs().max())
+        p64 = float((e.double() - x).abs().max())
+        assert k64 <= max(2 * p64, F32_TOL), (k64, p64)
 
 
 @pytest.mark.gpu
