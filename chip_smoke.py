@@ -156,7 +156,19 @@ Phases, in order (any failure exits non-zero):
    logits against the one-process CPU port (1e-5, the same argmax).
    Handoff bytes, ms and GB/s, prefill and decode ms.  A failure in
    either process fails the phase.  Every kernel's launch counter is
-   set to 0 just before each run and read just after it.
+   set to 0 just before each run and read just after it.  3u: training,
+   then serving the trained weights, on phase 3's qwen2-0.5b weights
+   (bf16, seed 0): one ``make_train_step`` step at 2 x 512 tokens
+   (kernel 5 48 times forward and 24 backward; no leaf requires grad
+   after it), then phase 3e's 8 requests through ``Cluster`` 1 + 1,
+   first with a ``detach().clone()`` of the trained weights, then with
+   the trained weights (kernels 1 and 2): the same tokens; then through
+   ``AsyncCluster`` 1 + 1 with the trained weights, every request
+   finished.  With each runtime alive after its drain, no live tensor
+   holds a ``grad_fn`` that was not alive before the step (none when
+   the phase runs alone), and the two ``Cluster`` runs hold the same
+   allocated memory above their start within 16 MiB.  The step's ms,
+   the launches, the memory and the counts.
 4. Device vs CPU in f32, once on the card (kernels) and once on the CPU
    (plain versions): qwen2-0.5b at 2 layers on the served requests (4),
    DeepSeek-V2 at 2 layers (dense prefix + 1 routed) on 2 short requests
@@ -371,6 +383,11 @@ DISAGG_SMOKE = dict(batch=4, seq=64, chunk=16, pad=8)
 DISAGG_CHUNKS = (0, 1536, 3584)      # phase 2i / 5: kernel 5's chunk starts
 DISAGG_TIMEOUT_S = 600               # a collective that waits longer fails
 DISAGG_F32_TOL = 1e-5                # card vs CPU smoke logits, f32
+# phase 3u: one LM train step on the served qwen2 weights, then serving
+# them (1 + 1 instances); the memory a runtime holds after its drain,
+# trained weights against their clone, agrees within MEM_TOL
+TRAIN_SERVE = dict(batch=2, seq=512, n_prefill=1, n_decode=1)
+MEM_TOL = 16 * 2 ** 20
 
 
 def check(cond: bool, msg: str) -> None:
@@ -4068,8 +4085,7 @@ def _disagg_child(rank, port, out_dir, runs):
             k5.launches = k5.tensor_core_launches = 0
             dist.barrier()
             try:
-                with torch.no_grad():
-                    first, dec, cs = step(ps, tk, cs)
+                first, dec, cs = step(ps, tk, cs)
                 torch.cuda.synchronize()
             finally:
                 M.prefill_chunked, M.decode_step, D.kv_handoff = real
@@ -4206,6 +4222,172 @@ def disagg_phase(card):
           f"{DISAGG_F32_TOL:g}), argmax equal; phase "
           f"{time.perf_counter() - t0:.1f} s")
     return p0["launches"]
+
+
+def graph_tensors() -> int:
+    """Live tensors that hold a ``grad_fn`` (an autograd graph kept
+    alive), after a collection."""
+    import gc
+
+    import torch
+    gc.collect()
+    return sum(1 for o in gc.get_objects()
+               if issubclass(type(o), torch.Tensor) and o.grad_fn is not None)
+
+
+def train_serve_run(cfg, params, device, kernels):
+    """Phase 3u's work, unchecked, so that a run on another tree's
+    ``src/`` reads the same numbers.  One ``make_train_step`` step on
+    ``params`` (updated in place) at TRAIN_SERVE's batch of random
+    tokens; then phase 3e's requests served through
+    ``Cluster(runtime="engine")`` with TRAIN_SERVE's instances, first
+    with a ``detach().clone()`` of the trained weights, then with the
+    trained weights; then through ``AsyncCluster`` with the trained
+    weights.  Each serving run is read after its drain with its runtime
+    still alive: tokens, phases, the live tensors holding a ``grad_fn``
+    and the memory allocated above what was before it was built.  Every
+    kernel's counter is set to 0 just before the step and each run, and
+    read just after.  Returns a dict of the numbers, with the graph
+    tensors already alive before the step (earlier phases')."""
+    import torch
+    from repro_torch.runtime.request import Phase
+    from repro_torch.serving import AsyncCluster, Cluster, SamplingParams
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import trainer as T
+    out = {"graph_before": graph_tensors()}
+    toks, labels = next(D.lm_batches(cfg.vocab_size, TRAIN_SERVE["batch"],
+                                     TRAIN_SERVE["seq"], seed=SEED))
+    state = O.init(params)
+    step = T.make_train_step(cfg, O.AdamWConfig(lr=1e-4, warmup_steps=1))
+    zero_launches(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, loss = step(params, state, toks, labels)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["train_launches"] = read_launches(kernels)
+    out["loss"] = float(loss)
+    out["requires_grad"] = sum(p.requires_grad for p in O.leaves(params))
+    out["leaves"] = len(O.leaves(params))
+    del state
+    clone = O.tree_map(lambda p: p.detach().clone(), params)
+    reqs = make_requests(cfg.vocab_size)
+    kw = dict(device=device, n_prefill=TRAIN_SERVE["n_prefill"],
+              n_decode=TRAIN_SERVE["n_decode"],
+              chunk_size=SERVE["chunk_size"], page_size=SERVE["page_size"],
+              max_seq=SERVE["max_seq"], n_pages=SERVE["n_pages"],
+              max_batch=SERVE["max_slots"])
+
+    def served(build):
+        graph_tensors()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        rt = build()
+        try:
+            wall = isinstance(rt, AsyncCluster)
+            if wall:
+                rt.start()
+            zero_launches(kernels)
+            hs = [rt.submit(r.prompt_tokens, sampling=SamplingParams(
+                max_new_tokens=NEW_TOKENS)) for r in reqs]
+            if wall:
+                drained = rt.drain(timeout=DRAIN_S)
+                errors = list(rt.worker_errors)
+            else:
+                rt.run()
+                drained, errors = True, []
+            launches = read_launches(kernels)
+            torch.cuda.synchronize()
+            graph = graph_tensors()
+            mem = torch.cuda.memory_allocated() - base
+            res = [h.result(wait=False) if wall else h.result() for h in hs]
+        finally:
+            if isinstance(rt, AsyncCluster):
+                rt.close()
+        return dict(tokens=[r.tokens for r in res], drained=drained,
+                    errors=errors, launches=launches, graph=graph, mem=mem,
+                    finished=sum(r.phase == Phase.FINISHED
+                                 and len(r.tokens) == NEW_TOKENS
+                                 for r in res))
+
+    out["clone"] = served(lambda: Cluster(cfg, runtime="engine",
+                                          params=clone, **kw))
+    del clone
+    out["trained"] = served(lambda: Cluster(cfg, runtime="engine",
+                                            params=params, **kw))
+    out["async"] = served(lambda: AsyncCluster(cfg, params=params, **kw))
+    out["requires_grad_after"] = sum(p.requires_grad
+                                     for p in O.leaves(params))
+    return out
+
+
+def train_serve_phase(cfg, params, device, kernels, card):
+    """Phase 3u: train then serve (``train_serve_run``) with full-width
+    ``cfg`` on the card.  The step launched kernel 5 2 x n_layers times
+    and its backward n_layers times; no leaf requires grad after it, as
+    none did before.  The trained weights stream their clone's tokens
+    through ``Cluster``, each run launched kernels 1 and 2 (every bf16
+    launch of kernel 1 on the tensor-core body), no run holds a tensor
+    with a ``grad_fn`` that was not alive before the step (none when
+    run alone), the two ``Cluster`` runs' memory deltas agree
+    within MEM_TOL, and ``AsyncCluster`` finished every request with no
+    worker error."""
+    import torch
+    t0 = time.perf_counter()
+    st = train_serve_run(cfg, params, device, kernels)
+    tl, L = st["train_launches"], cfg.n_layers
+    fwd, bwd = (tl["chunked_prefill_attention"],
+                tl["chunked_prefill_attention_bwd"])
+    check(fwd == 2 * L and bwd == L and math.isfinite(st["loss"]),
+          f"phase 3u: the step's loss {st['loss']}, kernel 5 forward "
+          f"{fwd}, backward {bwd}")
+    check(st["requires_grad"] == 0 and st["requires_grad_after"] == 0,
+          f"phase 3u: {st['requires_grad']} of {st['leaves']} leaves "
+          f"require grad after the step, {st['requires_grad_after']} "
+          "after serving")
+    n = len(st["clone"]["tokens"])
+    for name in ("clone", "trained", "async"):
+        r = st[name]
+        check(r["drained"] and r["errors"] == [] and r["finished"] == n,
+              f"phase 3u: {name}: drained {r['drained']}, {r['finished']} "
+              f"of {n} finished, worker errors {r['errors']}")
+        check(r["graph"] == st["graph_before"], f"phase 3u: {name}: "
+              f"{r['graph']} live tensors hold a grad_fn, "
+              f"{st['graph_before']} before the step")
+        check_bodies("3u", r["launches"], cfg.dtype)
+        check(r["launches"]["paged_prefill_attention"] > 0
+              and r["launches"]["paged_decode_attention"] > 0,
+              f"phase 3u: {name}: launches {r['launches']}")
+    check(st["trained"]["tokens"] == st["clone"]["tokens"],
+          "phase 3u: the trained weights and their clone stream different "
+          "tokens")
+    dmem = abs(st["trained"]["mem"] - st["clone"]["mem"])
+    check(dmem <= MEM_TOL, f"phase 3u: memory after the drain "
+          f"{st['trained']['mem']} (trained) vs {st['clone']['mem']} "
+          f"(clone) bytes, {dmem} apart > {MEM_TOL}")
+    mib = {k: st[k]["mem"] / 2 ** 20 for k in ("clone", "trained", "async")}
+    served = {k: {n: st[k]["launches"][n] for n in (
+        "paged_prefill_attention", "paged_decode_attention")}
+        for k in ("clone", "trained", "async")}
+    print(f"phase 3u: {cfg.name} {cfg.dtype}, one make_train_step step at "
+          f"{TRAIN_SERVE['batch']} x {TRAIN_SERVE['seq']}: loss "
+          f"{st['loss']:.4f}, {st['step_ms']:.1f} ms; kernel 5 {fwd} "
+          f"forward and {bwd} backward launches; {st['requires_grad']} of "
+          f"{st['leaves']} leaves require grad after it ({card})")
+    print(f"phase 3u: {n} requests of {NEW_TOKENS} tokens through "
+          f"Cluster {TRAIN_SERVE['n_prefill']} + {TRAIN_SERVE['n_decode']}"
+          f": the trained weights stream their clone's tokens; launches "
+          f"{served}; live tensors with a grad_fn after the drain: clone "
+          f"{st['clone']['graph']}, trained {st['trained']['graph']}, "
+          f"AsyncCluster {st['async']['graph']} ({st['graph_before']} "
+          f"before the step); allocated above the "
+          f"runtime's start: clone {mib['clone']:.2f} MiB, trained "
+          f"{mib['trained']:.2f} MiB ({dmem / 2 ** 20:.2f} MiB apart), "
+          f"AsyncCluster {mib['async']:.2f} MiB; AsyncCluster finished "
+          f"{st['async']['finished']} of {n}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
 
 def time_kernel(name, cases, kern, plain, lib, work, dtype, card,
@@ -4406,6 +4588,8 @@ def main() -> int:
     prefix_phase(cfg, params, device, kernels, card)
     # -- phase 3t: make_disagg_step, two processes on the card -----------
     disagg_launches = disagg_phase(card)
+    # -- phase 3u: one train step on the same weights, then serve them ---
+    train_serve_phase(cfg, params, device, kernels, card)
     del params
     torch.cuda.empty_cache()
 

@@ -149,6 +149,7 @@ class DecodeEngine:
                 return s
         return None
 
+    @torch.no_grad()
     def admit(self, now: float) -> List[Request]:
         admitted = self.scheduler.admit()
         pages: List[int] = []
@@ -232,8 +233,11 @@ class DecodeEngine:
             if t is not None:
                 t.record_stream(stream)
 
+    @torch.no_grad()
     def step(self, now: float) -> List[FinishedRequest]:
-        """One continuous-batching decode iteration over the slot batch."""
+        """One continuous-batching decode iteration over the slot batch.
+        No autograd graph is recorded, whatever the weights'
+        ``requires_grad``."""
         self.stream_events = []    # even on the empty early return: a
         if not self.slots:         # cancel can drain the batch with a
             return []              # decode_done event still in flight

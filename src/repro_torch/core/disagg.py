@@ -77,8 +77,10 @@ def make_disagg_step(cfg: ModelConfig, mesh, *, chunk_size: int,
     return the first logits; the decode logits are pod 1's (None on pod
     0, which decodes nothing); the cache is pod 1's filled one, and pod
     0's zeros.  Within each pod the model runs under
-    ``sharding.activation_sharding(mesh, batch_axes)``."""
+    ``sharding.activation_sharding(mesh, batch_axes)``, and under
+    ``torch.no_grad()``: it records no autograd graph."""
 
+    @torch.no_grad()
     def disagg_step(params, tokens, cache, enc_embeds=None):
         pod = _pod(mesh)
         b, s = tokens.shape

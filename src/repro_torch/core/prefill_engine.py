@@ -281,9 +281,11 @@ class PrefillEngine:
             self.scheduler.requeue_front(defer)
         return fit
 
+    @torch.no_grad()
     def step(self, now: float) -> List[PrefilledKV]:
         """Run ONE fixed-size chunk (the paper's prefill iteration unit).
-        Returns requests whose prefill completed this step."""
+        Returns requests whose prefill completed this step.  No autograd
+        graph is recorded, whatever the weights' ``requires_grad``."""
         if not self._chunk_queue:
             self._refill_chunks()
         if not self._chunk_queue:

@@ -274,8 +274,7 @@ def run_disagg(arch: str = "qwen2_0_5b", verbose: bool = True) -> dict:
                                 device="meta"),
                     S.data_sharding(mesh, ("data",)), mesh)
     t0 = time.time()
-    with torch.no_grad():
-        summary = op_cost.analyze(step, params, tokens, cache)
+    summary = op_cost.analyze(step, params, tokens, cache)
     stats = collective_stats(summary)
     rec = {"arch": arch, "mode": "disagg_step", "mesh": "2x16x16",
            "status": "ok", "compile_s": round(time.time() - t0, 1),

@@ -837,8 +837,8 @@ def grad_leaves(params):
     DTensor leaf re-wrapped around its local tensor in the same
     placements, through which gradients flow back to it).  The local
     tensors share the DTensors' storage, so an in-place update lands in
-    them."""
-    from torch.distributed.tensor import DTensor
+    them.  A plain leaf's tensor is its own alias, so an unsharded tree
+    never loads DTensor's module."""
     flat = leaves(params)
     loc = [local(p).detach().requires_grad_(True) for p in flat]
     it = iter(zip(loc, flat))
@@ -847,6 +847,7 @@ def grad_leaves(params):
         x, p = next(it)
         if not is_dtensor(p):
             return x
+        from torch.distributed.tensor import DTensor
         return DTensor.from_local(x, p.device_mesh, p.placements,
                                   run_check=False, shape=p.shape,
                                   stride=p.stride())

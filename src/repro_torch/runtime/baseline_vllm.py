@@ -63,8 +63,11 @@ class CoupledEngine:
                 return s
         return None
 
+    @torch.no_grad()
     def step(self, now: float) -> List[FinishedRequest]:
-        """One engine iteration: prefill if requests wait, else decode."""
+        """One engine iteration: prefill if requests wait, else decode.
+        No autograd graph is recorded, whatever the weights'
+        ``requires_grad``."""
         self.iterations += 1
         if self.waiting:
             return self._prefill_iteration(now)

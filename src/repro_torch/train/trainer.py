@@ -11,7 +11,9 @@ are moved to the parameters' device.  Gradients come from
 attention is kernel 5 and its hand-written backward on the card; a leaf
 the loss does not reach (a classifier's unused LM-side weights, say)
 gets a zero gradient, as ``jax.grad`` gives.  The step updates the
-parameters and the optimizer state in place (``optimizer.update``).
+parameters and the optimizer state in place (``optimizer.update``);
+it differentiates detached aliases of the leaves, so the caller's
+leaves keep their ``requires_grad`` and can be served as they are.
 
 The LM step runs sharded too: called inside
 ``sharding.activation_sharding`` with DTensor parameters and moments
@@ -68,16 +70,16 @@ def cls_loss(params, cfg: ModelConfig, tokens, lengths, labels):
 
 def grads_of(fn, params):
     """(gradient tree of ``fn(params)[0]`` w.r.t. every leaf of
-    ``params``, ``fn(params)`` detached).  Leaves are made to require
-    grad; one the value does not reach gets zeros.  Inside a context the
-    gradients are of this rank's local shards, and a leaf the batch axes
-    do not shard holds this rank's share (``sharding.reduce_grads``
-    sums them)."""
-    flat = opt.leaves(params)
-    if SH.active():
-        flat, params = SH.grad_leaves(params)
-    for p in flat:
-        p.requires_grad_(True)
+    ``params``, ``fn(params)`` detached).  ``fn`` gets a tree of
+    detached aliases of every leaf, each requiring grad
+    (``sharding.grad_leaves``): they share the leaves' storage, so an
+    in-place update of ``params`` lands in them, while the caller's
+    leaves keep the ``requires_grad`` they were passed with and record
+    nothing.  A leaf the value does not reach gets zeros.  Inside a
+    context the gradients are of this rank's local shards, and a leaf
+    the batch axes do not shard holds this rank's share
+    (``sharding.reduce_grads`` sums them)."""
+    flat, params = SH.grad_leaves(params)
     out = fn(params)
     got = torch.autograd.grad(out[0], flat, allow_unused=True)
     it = iter(g if g is not None else torch.zeros_like(p)

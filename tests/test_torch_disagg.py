@@ -8,7 +8,8 @@ pod 1 decodes from a cache it never computed; both logits equal the
 reference's unsharded ``prefill_chunked`` + ``decode_step`` within 2e-5
 (all-reduced partial sums over the 2-way model axis), pod 1's cache
 equals the reference's within the same bound, and pod 0's cache is
-zero.  Kernel 5 (its plain version on the CPU) runs on pod 0 only.
+zero.  Kernel 5 (its plain version on the CPU) runs on pod 0 only.  The
+weights require grad, and the step records no autograd graph.
 """
 import dataclasses
 import os
@@ -45,6 +46,7 @@ WORKER = textwrap.dedent("""
         from repro_torch.kernels import ops
         from repro_torch.models import model as M
         from repro_torch.models import sharding as S
+        from repro_torch.train.optimizer import leaves
         job = pickle.load(open(path, "rb"))
         mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 1, 2),
                           mesh_dim_names=("pod", "data", "model"))
@@ -88,11 +90,17 @@ WORKER = textwrap.dedent("""
             calls.append(1)
             return real(*a, **k)
         ops.chunked_prefill_attention = counted
+        # weights that require grad: the step records no graph all the same
+        for x in leaves(ps):
+            x.requires_grad_(True)
         step = make_disagg_step(cfg, mesh, chunk_size=CHUNK)
-        with torch.no_grad():
-            first, dec, cs = step(ps, toks, cs)
+        first, dec, cs = step(ps, toks, cs)
         ops.chunked_prefill_attention = real
         out["kernel5_calls"] = len(calls)
+        out["graph"] = sum(t.grad_fn is not None
+                           for t in [first, dec] + leaves(cs)
+                           if t is not None)
+        out["flags"] = all(x.requires_grad for x in leaves(ps))
         out["first"] = first.full_tensor().numpy()
         out["dec"] = None if dec is None else dec.full_tensor().numpy()
         out["cache"] = [{k: x.full_tensor().numpy() for k, x in l.items()}
@@ -189,3 +197,9 @@ def test_disagg_prefill_runs_on_pod0_only(disagg):
     for r in res:
         want = layers * (SEQ // CHUNK) if r["handoff"]["pod"] == 0 else 0
         assert r["kernel5_calls"] == want
+
+
+def test_disagg_step_records_no_graph(disagg):
+    res, _ = disagg
+    for r in res:
+        assert r["graph"] == 0 and r["flags"]
