@@ -42,6 +42,14 @@ aliases its cross pages and installs no cross payload.  A slot that
 then appends onto a shared page gets a private copy first (the
 allocator's copy-on-write, replayed on the device pool).
 
+``slot_steps`` counts the occupied slots summed over iterations.  A
+caller that sets ``phase_hook`` is called ``hook(phase, **args)`` as
+each phase starts: ``decode.admit`` (``admit``), then in an iteration
+``decode.build`` (with its ``step``, ``slots``, ``max_slots``,
+``context``, the keys its slots attend, and ``rids``),
+``decode.launch``, ``decode.sync`` and ``decode.post``; ``None``, the
+default, calls nothing.
+
 On the card every call runs on the calling thread's current stream.
 Admission makes that stream wait on each payload's ``ready`` event (the
 prefill side's stream may be another) and marks the payload's tensors
@@ -113,6 +121,8 @@ class DecodeEngine:
         self.slots: Dict[int, SlotState] = {}
         self._pending: Dict[str, PrefilledKV] = {}
         self.iterations = 0
+        self.slot_steps = 0          # occupied slots summed over iterations
+        self.phase_hook = None
         # (rid, token) pairs emitted by the LAST step() — the streaming
         # feed a serving layer forwards to request handles
         self.stream_events: List[Tuple[str, int]] = []
@@ -151,6 +161,8 @@ class DecodeEngine:
 
     @torch.no_grad()
     def admit(self, now: float) -> List[Request]:
+        if self.phase_hook is not None:
+            self.phase_hook("decode.admit")
         admitted = self.scheduler.admit()
         pages: List[int] = []
         payload_k, payload_v = [], []
@@ -242,8 +254,18 @@ class DecodeEngine:
         if not self.slots:         # cancel can drain the batch with a
             return []              # decode_done event still in flight
         self.iterations += 1
+        self.slot_steps += len(self.slots)
+        hook = self.phase_hook
+        if hook is not None:
+            hook("decode.build", step=self.iterations, slots=len(self.slots),
+                 max_slots=self.max_slots,
+                 context=sum(st.req.prompt_len + st.req.generated + 1
+                             for st in self.slots.values()),
+                 rids=[st.req.rid for st in self.slots.values()])
         nxt = (self._iteration_dense() if self.backend == "dense"
                else self._iteration_paged())
+        if hook is not None:
+            hook("decode.post")
         finished: List[FinishedRequest] = []
         for s in list(self.slots):
             st = self.slots[s]
@@ -336,11 +358,15 @@ class DecodeEngine:
             extra.update(temps=to_device(temps, dev),
                          top_ks=to_device(tks, dev),
                          seeds=to_device(seeds, dev))
-        nxt = M.decode_step_paged(
-            self.params, self.cfg, to_device(toks, dev),
-            to_device(pos, dev), to_device(pages, dev),
-            to_device(offs, dev), to_device(bt, dev), to_device(lens, dev),
-            self.pool.k, self.pool.v, **extra)
+        inputs = [to_device(a, dev) for a in (toks, pos, pages, offs, bt,
+                                              lens)]
+        hook = self.phase_hook
+        if hook is not None:
+            hook("decode.launch")
+        nxt = M.decode_step_paged(self.params, self.cfg, *inputs,
+                                  self.pool.k, self.pool.v, **extra)
+        if hook is not None:
+            hook("decode.sync")
         return nxt.cpu().numpy()
 
     def _iteration_dense(self) -> np.ndarray:
@@ -352,9 +378,14 @@ class DecodeEngine:
             toks[s, 0] = st.last_token
             pos[s] = st.req.prompt_len + st.req.generated
             self.scheduler.step_token(st.req.rid)
-        nxt, self.cache = M.decode_step_greedy(
-            self.params, self.cfg, to_device(toks, self.device), self.cache,
-            to_device(pos, self.device))
+        toks, pos = to_device(toks, self.device), to_device(pos, self.device)
+        hook = self.phase_hook
+        if hook is not None:
+            hook("decode.launch")
+        nxt, self.cache = M.decode_step_greedy(self.params, self.cfg, toks,
+                                               self.cache, pos)
+        if hook is not None:
+            hook("decode.sync")
         return nxt.cpu().numpy()
 
     # ------------------------------------------------------------------

@@ -38,7 +38,15 @@ cross pages and runs no encoder work.  A finished request commits its
 pages to the cache before it frees them.
 
 Host-side bookkeeping is the reference's: pad to powers of two, tables
-built with numpy, first tokens copied to the host.  The model runs on
+built with numpy, first tokens copied to the host.  ``tokens_prefilled``
+counts the prompt tokens computed and ``rows_computed`` the rows sent to
+the model (on the paged backend a chunk's padded ``ns x sq``), so their
+ratio is the share of prefill work that was not padding.  A caller that
+sets ``phase_hook`` is called ``hook(phase, **args)`` as each phase of a
+chunk starts (``prefill.build``, with the chunk's ``step``,
+``segments``, ``tokens``, ``rows`` and ``rids``; ``prefill.launch``,
+``prefill.sync``, ``prefill.post``); ``None``, the default, calls
+nothing.  The model runs on
 ``device`` ("cuda" unless the caller asks for "cpu"); ``params`` must
 live there.  On the card every step runs on the calling thread's
 current stream; a finished request's payload carries an event recorded
@@ -163,6 +171,9 @@ class PrefillEngine:
         self.chunk_steps = 0         # steps that actually ran a chunk
         self.fused_calls = 0         # one per chunk on the paged backend
         self.encoder_calls = 0       # chunks that ran encoder + scatter
+        self.tokens_prefilled = 0    # prompt tokens computed
+        self.rows_computed = 0       # rows sent to the model, padding too
+        self.phase_hook = None
         self.enc_ctx = self.spec.cross_ctx
         # the prefix cache needs stable page content (no sliding-window
         # trims) and the paged pool; a no-op elsewhere
@@ -308,6 +319,13 @@ class PrefillEngine:
         n = len(segs)
         ns = _pow2(n)                          # stable batch dim
         sq = _pow2(max(s.length for s in segs))
+        tokens = sum(s.length for s in segs)
+        self.tokens_prefilled += tokens
+        self.rows_computed += ns * sq
+        hook = self.phase_hook
+        if hook is not None:
+            hook("prefill.build", step=self.chunk_steps, segments=n,
+                 tokens=tokens, rows=ns * sq, rids=[s.rid for s in segs])
         ps, trash = self.page_size, self._trash
         toks = np.zeros((ns, sq), np.int32)
         qoff = np.zeros((ns,), np.int32)
@@ -372,17 +390,23 @@ class PrefillEngine:
                                   cross_pg=to_device(cpg, dev),
                                   cross_off=to_device(coff, dev))
                 self.encoder_calls += 1
+        inputs = [to_device(a, dev)
+                  for a in (toks, qoff, kvlen, last, bt, pg, off)]
+        if hook is not None:
+            hook("prefill.launch")
         next_tok, _ = M.prefill_paged(
-            self.params, self.cfg, to_device(toks, dev),
-            to_device(qoff, dev), to_device(kvlen, dev),
-            to_device(last, dev), to_device(bt, dev), to_device(pg, dev),
-            to_device(off, dev), self.pool.k, self.pool.v, **cross_args)
+            self.params, self.cfg, *inputs, self.pool.k, self.pool.v,
+            **cross_args)
         self.fused_calls += 1
         for rid in scattered:
             # the cross pages now hold the encoder K/V: publish them, so
             # later requests with the same encoder input alias them
             self.alloc.commit_cross(rid)
+        if hook is not None:
+            hook("prefill.sync")
         next_tok = next_tok.cpu().numpy()
+        if hook is not None:
+            hook("prefill.post")
         finished: List[PrefilledKV] = []
         for i, seg in enumerate(segs):
             req = self._reqs[seg.rid]
@@ -448,10 +472,21 @@ class PrefillEngine:
         in the reference: zeros for a request without any, whose cross
         output is then 0)."""
         finished: List[PrefilledKV] = []
-        for seg in chunk.segments:
+        segs = chunk.segments
+        tokens = sum(s.length for s in segs)
+        self.tokens_prefilled += tokens
+        self.rows_computed += tokens
+        hook = self.phase_hook
+        if hook is not None:
+            hook("prefill.build", step=self.chunk_steps,
+                 segments=len(segs), tokens=tokens, rows=tokens,
+                 rids=[s.rid for s in segs])
+        for seg in segs:
             req = self._reqs[seg.rid]
             if req.t_prefill_start < 0:
                 req.t_prefill_start = now
+            if hook is not None:
+                hook("prefill.build")
             toks = np.zeros((1, seg.length), np.int32)
             if req.prompt_tokens is not None:
                 toks[0] = req.prompt_tokens[
@@ -462,13 +497,19 @@ class PrefillEngine:
                                   dtype=torch.float32, device=self.device)
                 if req.enc_embeds is not None:
                     enc[0].copy_(torch.as_tensor(req.enc_embeds))
+            toks = to_device(toks, self.device)
+            if hook is not None:
+                hook("prefill.launch")
             logits, self._caches[seg.rid] = M.prefill(
-                self.params, self.cfg, to_device(toks, self.device),
-                self._caches[seg.rid], q_offset=seg.req_start,
-                enc_embeds=enc)
+                self.params, self.cfg, toks, self._caches[seg.rid],
+                q_offset=seg.req_start, enc_embeds=enc)
             req.prefilled = seg.req_start + seg.length
             if req.prefilled >= req.prompt_len:
+                if hook is not None:
+                    hook("prefill.sync")
                 finished.append(self._finish_dense(req, logits, now))
+        if hook is not None:
+            hook("prefill.post")
         return finished
 
     def _finish_dense(self, req: Request, logits, now: float

@@ -4,31 +4,22 @@ reference's ``obs/profile.py``).
 Assign an instance to ``Cluster.profiler`` (the event loop calls
 ``record(kind, dt)`` around each dispatched event) and read
 ``report()`` after the run.  Its cost is two ``perf_counter`` calls
-per event.  ``thread_safe=True`` takes a lock per record, for callers
-that record from several threads; the single-threaded event loop keeps
-the lock-free default.
+per event.  It takes no lock: the event loop records from one thread.
 """
 from __future__ import annotations
 
-import threading
 from collections import defaultdict
 from typing import Dict, Optional
 
 
 class EventLoopProfiler:
-    def __init__(self, thread_safe: bool = False) -> None:
+    def __init__(self) -> None:
         self.counts: Dict[str, int] = defaultdict(int)
         self.time_s: Dict[str, float] = defaultdict(float)
-        self._lock = threading.Lock() if thread_safe else None
 
     def record(self, kind: str, dt: float) -> None:
-        if self._lock is None:
-            self.counts[kind] += 1
-            self.time_s[kind] += dt
-        else:
-            with self._lock:
-                self.counts[kind] += 1
-                self.time_s[kind] += dt
+        self.counts[kind] += 1
+        self.time_s[kind] += dt
 
     @property
     def total_events(self) -> int:

@@ -1,12 +1,15 @@
 """Structured tracing: span/instant/counter records + exporters.
 
 The ``Tracer`` is an append-only event sink the runtimes write into
-when one is attached (``Cluster(tracer=...)``); with no tracer attached every emission site is a single
-``is not None`` branch, so tracing off costs nothing measurable.
+when one is attached (``Cluster(tracer=...)``, ``AsyncCluster(tracer=
+Tracer(clock="wall"))``); with no tracer attached every emission site
+is a single ``is not None`` branch, so tracing off costs nothing
+measurable.
 
 Record model (the JSONL schema, one JSON object per line):
 
-  {"type": "meta",    "schema": 1, "clock": "virtual"|"wall"}
+  {"type": "meta",    "schema": 1, "clock": "virtual"|"wall",
+                      "anchor"?: {"wall_ns": int, "ts": float}}
   {"type": "span",    "name", "track", "ts", "dur", "rid"?, "args"?}
   {"type": "instant", "name", "track", "ts",        "rid"?, "args"?}
   {"type": "counter", "name", "track", "ts", "values": {series: num}}
@@ -17,6 +20,27 @@ cluster-scope events.  Request-phase spans additionally carry ``rid``
 and are grouped per request on export.  ``ts``/``dur`` are seconds on
 the runtime's clock: the event-loop runtimes emit virtual-clock times,
 the wall-clock runtime emits real seconds since cluster start.
+
+The anchor joins a wall-clock trace to other clocks: a ``time.time_ns()``
+read and the runtime's clock read back to back (``set_anchor``, which
+``AsyncCluster.start()`` calls).  ``wall_ns(ts)`` turns a ``ts`` into
+Unix nanoseconds, the clock ``torch.profiler`` stamps its events with,
+so a span can be laid over a device trace.
+
+Spans of the wall-clock runtime (``serving/async_runtime.py``), each on
+its instance's track unless said otherwise:
+
+  * ``prefill_chunk`` (args ``step``, ``segments``, ``tokens``, ``rows``,
+    ``rids``) and ``decode_step`` (``step``, ``slots``, ``max_slots``,
+    ``context``, ``rids``): one engine step, with child spans of the
+    same ``step`` that tile it: ``prefill.build`` / ``decode.admit``,
+    ``*.build``, ``*.launch``, ``*.sync``, ``*.post``;
+  * ``poll``: one unbroken stretch in which the worker found nothing to
+    run;
+  * ``lock_wait`` (arg ``lock``: the instance waited on): a wait for an
+    instance lock, on the waiting worker's track (the thread's name for
+    ``submit()`` and the transfer worker);
+  * the request spans below, and ``transfer``.
 
 Thread safety: emission is a single ``list.append`` of a fresh dict —
 atomic under the CPython GIL — so threaded emitters share one
@@ -38,7 +62,8 @@ format (https://ui.perfetto.dev loads the file directly):
 from __future__ import annotations
 
 import json
-from typing import Dict, Iterable, List, Optional
+import time
+from typing import Callable, Dict, Iterable, List, Optional
 
 SCHEMA_VERSION = 1
 
@@ -59,6 +84,26 @@ class Tracer:
         assert clock in ("virtual", "wall"), clock
         self.clock = clock
         self.events: List[dict] = []
+        #: {"wall_ns", "ts"}: a time.time_ns() read beside a ts read
+        self.anchor: Optional[dict] = None
+
+    def set_anchor(self, now: Callable[[], float]) -> None:
+        """Anchor ``ts`` (read from ``now``) to the Unix clock: of five
+        ``now``, ``time_ns``, ``now`` triples, the one whose two ``now``
+        reads lie closest, with ``ts`` their midpoint."""
+        best = None
+        for _ in range(5):
+            a = now()
+            wall = time.time_ns()
+            b = now()
+            if best is None or b - a < best[0]:
+                best = (b - a, wall, 0.5 * (a + b))
+        self.anchor = {"wall_ns": best[1], "ts": best[2]}
+
+    def wall_ns(self, ts: float) -> int:
+        """``ts`` in Unix nanoseconds (``torch.profiler``'s clock)."""
+        return self.anchor["wall_ns"] + round(
+            (ts - self.anchor["ts"]) * 1e9)
 
     def __len__(self) -> int:
         return len(self.events)
@@ -101,6 +146,8 @@ class Tracer:
     def to_jsonl_records(self) -> List[dict]:
         head = {"type": "meta", "schema": SCHEMA_VERSION,
                 "clock": self.clock}
+        if self.anchor is not None:
+            head["anchor"] = dict(self.anchor)
         return [head] + list(self.events)
 
     def write_jsonl(self, path: str) -> None:
@@ -164,9 +211,11 @@ class Tracer:
                 out.append(dict(base, ph="i", s="t", args=args))
             else:                          # counter
                 out.append(dict(base, ph="C", args=dict(ev["values"])))
+        other = {"schema": SCHEMA_VERSION, "clock": self.clock}
+        if self.anchor is not None:
+            other["anchor"] = dict(self.anchor)
         return {"traceEvents": out, "displayTimeUnit": "ms",
-                "otherData": {"schema": SCHEMA_VERSION,
-                              "clock": self.clock}}
+                "otherData": other}
 
     def write_perfetto(self, path: str) -> None:
         with open(path, "w") as f:
@@ -193,6 +242,11 @@ def validate_jsonl_records(records: Iterable[dict]) -> List[str]:
         errs.append(f"unknown schema version {head.get('schema')!r}")
     elif head.get("clock") not in ("virtual", "wall"):
         errs.append(f"unknown clock {head.get('clock')!r}")
+    elif "anchor" in head and not (
+            isinstance(head["anchor"], dict)
+            and isinstance(head["anchor"].get("wall_ns"), int)
+            and isinstance(head["anchor"].get("ts"), (int, float))):
+        errs.append(f"bad anchor {head['anchor']!r}")
     for i, rec in enumerate(records[1:], start=2):
         kind = rec.get("type")
         if kind not in ("span", "instant", "counter"):

@@ -59,6 +59,30 @@ Locking protocol (deadlock freedom by construction):
   * the ``PagedAllocator``'s own internal lock (kvcache/paged.py) is
     defense-in-depth underneath both.
 
+Tracing: ``AsyncCluster(tracer=Tracer(clock="wall"))`` (or a tracer
+set before ``start()``).  ``start()`` anchors the tracer's clock to the
+Unix clock (``Tracer.set_anchor``), so ``tracer.wall_ns(ts)`` lays any
+span over a ``torch.profiler`` trace.  Each worker records, on its
+instance's track:
+
+  * ``prefill_chunk`` (args ``step``: the engine's ``chunk_steps``,
+    ``segments``, ``tokens``: prompt tokens in the chunk, ``rows``: the
+    padded rows sent to the model, ``rids``) and ``decode_step``
+    (``step``: ``iterations``, ``slots``, ``max_slots``, ``context``: the
+    keys the slots attend, ``rids``), from taking the instance's lock
+    to the end of the step's host tail (first tokens handed on, tokens
+    streamed); their child spans, of the same ``step``, tile them:
+    ``decode.admit``, ``*.build`` (input arrays and their copies to the
+    device), ``*.launch`` (the model call until it returns), ``*.sync``
+    (the copy of the tokens to the host) and ``*.post`` (the rest);
+  * ``poll``: one unbroken stretch in which it found nothing to run;
+  * ``lock_wait`` (arg ``lock``): a wait for an instance lock, which
+    ``submit()`` and the transfer worker record too, on their thread's
+    name.
+
+With no tracer none of this reads a clock: each site is one ``is not
+None`` branch, and the engines' ``phase_hook`` stays ``None``.
+
 No hidden failure: a worker's exception still fences its instance (its
 requests re-prefill on the survivors, as in the reference), but it is
 also recorded in ``AsyncCluster.worker_errors`` with its traceback, so
@@ -122,7 +146,7 @@ class AsyncRequestHandle:
         return self._req
 
     def done(self) -> bool:
-        return self._req.phase in TERMINAL_PHASES
+        return self._cluster._done(self._req)
 
     def tokens_so_far(self) -> List[int]:
         return list(self._cluster._buffers.get(self.rid, ()))
@@ -193,6 +217,78 @@ class _TransferWorker(threading.Thread):
             except Exception as e:       # never wedge the request:
                 c._note_error(self.name)
                 c._fail(oc.req, f"transfer worker error: {e!r}")
+
+
+class _TimedLock:
+    """An instance's lock whose waits the tracer records as
+    ``lock_wait`` spans on ``track``."""
+
+    def __init__(self, cluster: "AsyncCluster", inst, track: str):
+        self._cluster, self._inst, self._track = cluster, inst, track
+
+    def __enter__(self):
+        lock = self._inst.lock
+        if not lock.acquire(blocking=False):
+            c = self._cluster
+            t = c.now()
+            lock.acquire()
+            c.tracer.span("lock_wait", self._track, t, c.now() - t,
+                          lock=self._inst.iid)
+
+    def __exit__(self, *exc) -> None:
+        self._inst.lock.release()
+
+
+class _StepSpans:
+    """One worker's step and poll spans (module docstring): its engines
+    report each phase's start through ``phase``, their ``phase_hook``."""
+
+    def __init__(self, tracer: Tracer, now, track: str):
+        self._tracer, self._now, self._track = tracer, now, track
+        self._marks: List[tuple] = []      # (phase, ts) of this step
+        self._args: dict = {}
+        self._t_try = self._t0 = 0.0
+        self._idle_since: Optional[float] = None
+
+    def phase(self, name: str, **args) -> None:
+        self._marks.append((name, self._now()))
+        self._args.update(args)
+
+    def attempt(self) -> None:
+        """The loop iteration starts (before it takes the lock)."""
+        self._t_try = self._now()
+
+    def begin(self) -> None:
+        """The lock is held: a step may start."""
+        self._t0 = self._now()
+        self._marks, self._args = [], {}
+
+    def end(self, name: str, ran: bool) -> None:
+        """The iteration is over: a step that ran a chunk or an iteration
+        becomes a ``name`` span and its phases; else the poll stretch
+        goes on."""
+        tr, track = self._tracer, self._track
+        if not (ran and self._marks):
+            if self._idle_since is None:
+                self._idle_since = self._t_try
+            return
+        self.close(self._t_try)
+        t1 = self._now()
+        tr.span(name, track, self._t0, t1 - self._t0, **self._args)
+        step = self._args.get("step")
+        start = self._t0
+        ends = [t for _, t in self._marks[1:]] + [t1]
+        for (phase, _), end in zip(self._marks, ends):
+            tr.span(phase, track, start, end - start, step=step)
+            start = end
+
+    def close(self, t: Optional[float] = None) -> None:
+        """End the poll stretch, if one is open, at ``t`` (now)."""
+        if self._idle_since is not None:
+            t = self._now() if t is None else t
+            self._tracer.span("poll", self._track, self._idle_since,
+                              t - self._idle_since)
+            self._idle_since = None
 
 
 class AsyncCluster:
@@ -286,6 +382,11 @@ class AsyncCluster:
         self._stop = threading.Event()
         self._started = False
         self._t0 = 0.0
+        # rids in each decode instance's running step: a step stamps a
+        # request FINISHED before its worker streams the step's tokens
+        self._stepping: Dict[str, frozenset] = {
+            d.iid: frozenset() for d in self._decode_insts}
+        self._steps: Dict[str, _StepSpans] = {}    # with a tracer
         #: tracebacks of worker exceptions that no FaultSpec injected
         self.worker_errors: List[str] = []
 
@@ -308,10 +409,6 @@ class AsyncCluster:
             "bytes_sent": self.network.bytes_sent,
             "bytes_saved": self.network.bytes_saved,
             "retransmits": self.network.retransmits})
-        #: optional per-step-kind instrumentation (repro_torch.obs.profile.
-        #: EventLoopProfiler — construct with thread_safe=True here):
-        #: workers call record("prefill_step"/"decode_step", dt)
-        self.profiler = None
 
         # workers are created here, started lazily on first submit()
         self._wake: Dict[str, threading.Event] = \
@@ -340,6 +437,12 @@ class AsyncCluster:
             return self
         self._started = True
         self._t0 = time.monotonic()
+        if self.tracer is not None:
+            self.tracer.set_anchor(self.now)
+            for i in self.instances:
+                self._steps[i.iid] = _StepSpans(self.tracer, self.now,
+                                                i.iid)
+                i.trace_phases(self._steps[i.iid].phase)
         for t in self._threads:
             t.start()
         for w in self._xfer.values():
@@ -449,8 +552,7 @@ class AsyncCluster:
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cv:
             while True:
-                if all(r.phase in TERMINAL_PHASES
-                       for r in self._reqs.values()):
+                if all(self._done(r) for r in self._reqs.values()):
                     return True
                 remaining = None if deadline is None \
                     else deadline - time.monotonic()
@@ -489,11 +591,20 @@ class AsyncCluster:
     def _inst(self, iid: str) -> InstanceRuntime:
         return self._by_iid[iid]
 
+    def _done(self, req: Request) -> bool:
+        """Terminal, and a finished request's last token in its buffer."""
+        if req.phase not in TERMINAL_PHASES:
+            return False
+        return req.phase is not Phase.FINISHED or not any(
+            req.rid in rids for rids in self._stepping.values())
+
     @contextlib.contextmanager
     def _on(self, inst: InstanceRuntime):
         """Hold ``inst``'s lock and run on its stream: how a thread other
         than the instance's worker calls into its engines."""
-        with inst.lock, torch.cuda.stream(inst.stream):
+        lock = inst.lock if self.tracer is None else _TimedLock(
+            self, inst, threading.current_thread().name)
+        with lock, torch.cuda.stream(inst.stream):
             yield
 
     def _note_error(self, where: str) -> None:
@@ -645,29 +756,33 @@ class AsyncCluster:
 
     def _prefill_loop(self, p: InstanceRuntime) -> None:
         wake, xfer = self._wake[p.iid], self._xfer.get(p.iid)
-        while not self._stop.is_set():
-            if p.iid in self._dead:
-                return
-            if self._paused(p.iid):
-                continue
-            obs = self.tracer is not None or self.profiler is not None
-            t0 = self.now() if obs else 0.0
-            with p.lock:
-                ran = p.prefill_start(self.now()) is not None
-                outcomes = p.prefill_complete(self.now()) if ran else []
-            if obs and ran:
-                dt = self.now() - t0
-                if self.tracer is not None:
-                    self.tracer.span("prefill_chunk", p.iid, t0, dt)
-                if self.profiler is not None:
-                    self.profiler.record("prefill_step", dt)
-            if p.iid in self._dead:
-                return        # crashed mid-step: completions are lost
-            for oc in outcomes:
-                self._on_prefill_outcome(oc, xfer, p.iid)
-            if not ran:
-                wake.wait(self.poll_interval_s)
-                wake.clear()
+        steps = self._steps.get(p.iid)
+        lock = p.lock if steps is None else _TimedLock(self, p, p.iid)
+        try:
+            while not self._stop.is_set():
+                if p.iid in self._dead:
+                    return
+                if self._paused(p.iid):
+                    continue
+                if steps is not None:
+                    steps.attempt()
+                with lock:
+                    if steps is not None:
+                        steps.begin()
+                    ran = p.prefill_start(self.now()) is not None
+                    outcomes = p.prefill_complete(self.now()) if ran else []
+                if p.iid in self._dead:
+                    return    # crashed mid-step: completions are lost
+                for oc in outcomes:
+                    self._on_prefill_outcome(oc, xfer, p.iid)
+                if steps is not None:
+                    steps.end("prefill_chunk", ran)
+                if not ran:
+                    wake.wait(self.poll_interval_s)
+                    wake.clear()
+        finally:
+            if steps is not None:
+                steps.close()
 
     def _on_prefill_outcome(self, oc: PrefillOutcome,
                             xfer: Optional[_TransferWorker],
@@ -702,38 +817,52 @@ class AsyncCluster:
 
     def _decode_loop(self, d: InstanceRuntime) -> None:
         wake = self._wake[d.iid]
-        while not self._stop.is_set():
-            if d.iid in self._dead:
-                return
-            if self._paused(d.iid):
-                continue
-            obs = self.tracer is not None or self.profiler is not None
-            t0 = self.now() if obs else 0.0
-            with d.lock:
-                ran = d.decode_start(self.now()) is not None
-                ev = d.decode_complete(self.now()) if ran else None
-            if obs and ran:
-                dt = self.now() - t0
-                if self.tracer is not None:
-                    self.tracer.span("decode_step", d.iid, t0, dt)
-                if self.profiler is not None:
-                    self.profiler.record("decode_step", dt)
-            if d.iid in self._dead:
-                return        # crashed mid-step: completions are lost
-            if ev is not None:
-                for r in ev.finished:
-                    # engine stamped t_finish with the step's start time;
-                    # wall-clock JCT must include the final step itself
-                    r.t_finish = self.now()
-                    self._finish_obs(r, d.iid)
-                for rid, tok in ev.stream:
-                    self._stream(rid, tok)
-            if ev is not None and (ev.stream or ev.finished):
-                with self._cv:
-                    self._cv.notify_all()
-            if not ran:
-                wake.wait(self.poll_interval_s)
-                wake.clear()
+        steps = self._steps.get(d.iid)
+        lock = d.lock if steps is None else _TimedLock(self, d, d.iid)
+        try:
+            while not self._stop.is_set():
+                if d.iid in self._dead:
+                    return
+                if self._paused(d.iid):
+                    continue
+                if steps is not None:
+                    steps.attempt()
+                ev = None
+                with lock:
+                    if steps is not None:
+                        steps.begin()
+                    ran = d.decode_start(self.now()) is not None
+                    if ran:
+                        # the step stamps the requests it finishes
+                        # FINISHED; their handles read done once its
+                        # tokens are streamed
+                        self._stepping[d.iid] = d.slot_rids()
+                        ev = d.decode_complete(self.now())
+                if d.iid in self._dead:
+                    return    # crashed mid-step: completions are lost
+                if ev is not None:
+                    for r in ev.finished:
+                        # engine stamped t_finish with the step's start
+                        # time; wall-clock JCT must include the final
+                        # step itself
+                        r.t_finish = self.now()
+                        self._finish_obs(r, d.iid)
+                    for rid, tok in ev.stream:
+                        self._stream(rid, tok)
+                    with self._cv:
+                        self._stepping[d.iid] = frozenset()
+                        self._cv.notify_all()
+                if steps is not None:
+                    steps.end("decode_step", ran)
+                if not ran:
+                    wake.wait(self.poll_interval_s)
+                    wake.clear()
+        finally:
+            if steps is not None:
+                steps.close()
+            with self._cv:
+                self._stepping[d.iid] = frozenset()
+                self._cv.notify_all()
 
     # -- KV transfer state machine ------------------------------------------
     def _transfer(self, oc: PrefillOutcome, attempt: int) -> None:

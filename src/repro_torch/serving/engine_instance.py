@@ -130,7 +130,16 @@ class EngineInstance:
     def decode_idle(self) -> bool:
         return self.de.idle()
 
+    def slot_rids(self) -> frozenset:
+        """The requests in the decode engine's slots."""
+        return frozenset(st.req.rid for st in self.de.slots.values())
+
     # -- shared -------------------------------------------------------------
+    def trace_phases(self, hook) -> None:
+        """Have both engines call ``hook(phase, **args)`` as each phase of
+        their steps starts (``None``: call nothing)."""
+        self.pe.phase_hook = self.de.phase_hook = hook
+
     def idle(self) -> bool:
         return self.prefill_idle() and self.decode_idle()
 
